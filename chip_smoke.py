@@ -5,24 +5,36 @@
 
 Phases (any failure makes the script exit non-zero without the final line):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-     from slowflow_tpu_torch/csrc and print the build time;
+     from slowflow_tpu_torch/csrc (one nvcc per source, in parallel) and
+     print the build time;
   2. each kernel against its plain PyTorch twin on the card at the bench
      shapes (B=4, S=3, 270x480 and the coarsest level 176x314): K2
-     warp_assemble in all three modes, K1 solve_step for smoothing methods
-     0/1/2 from zero and from a given increment; relative error and time;
+     warp_assemble and K3 fused_data in all three modes, K1 solve_step for
+     smoothing methods 0/1/2 from zero and from a given increment, K4
+     warp_stack at the bench flow and at ~20 px, K5 sor (30 sweeps from a
+     nonzero increment), K6's entry warp_stack_pallas (factors -2..2), and
+     K3 on K4's stack against K2; relative error and time;
   3. the slice: variational_mt_batched at the bench configuration (bench.py
      scene, 5 levels, 10 alternations x 10 outer x 30 SOR sweeps, occlusion
-     reasoning, batch 4) once through the kernels and once through the twins,
-     both on the card: wall times, launch counts, flow recovery error and the
-     kernel-vs-twin agreement; then one kernel-route run under torch.profiler
-     for the device time by kernel and the idle share;
-  4. the stage-2 CLI (deep_matching 0) on a small synthetic PNG sequence.
+     reasoning, batch 4) on the merged route and on the stack route with the
+     composed solve, each once through the kernels and once through the
+     twins, both on the card: wall times, launch counts per route, flow
+     recovery error and the kernel-vs-twin agreement; the unfused route
+     with the pallas_warp window warp at 2 levels, 2 x 3 iterations,
+     through the kernels; then one kernel run of the merged and of the
+     stack route under torch.profiler for the device time by kernel and
+     the idle share;
+  4. the stage-2 CLI (deep_matching 0) on a small synthetic PNG sequence,
+     once with the default route and once with the cfg keys
+     slow_flow_merge_warp 0, slow_flow_fused_solve 0, slow_flow_pallas_sor 1
+     (launch counts must show the stack route and the composed solve).
 Prints a JSON line with one entry per kernel, then
 {"ok": true, "device": {...}} as the last line. A detailed record goes to
 chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -51,16 +63,46 @@ FLOW_MEAN_TOL = 1e-2    # px
 LABEL_SHARE_TOL = 0.01  # share of occlusion labels that differ
 RECOVERY_TOL = 0.01     # px, |median(wx) - 1.5| on the bench scene
 
+# kernels each route must launch; every other kernel must stay at zero
+ROUTE_KERNELS = {
+    "merged": {"warp_assemble", "solve_step"},
+    "stack": {"warp_stack", "fused_data", "sor"},
+    "unfused": {"warp_stack_pallas", "sor"},
+}
 
-def bench_params():
-    """bench.py's configuration: cfgs/slow_flow.cfg at 1080p * 0.25."""
+
+def bench_params(**route):
+    """bench.py's configuration: cfgs/slow_flow.cfg at 1080p * 0.25; route
+    keys (and depth cuts) as keyword overrides."""
     from slowflow_tpu_torch.variational.params import MultiFrameParams
 
-    return MultiFrameParams(S=3, alpha=4.0, gamma=6.0, delta=1.0,
-                            rho=(1.0, 1.0), omega=(0.0, 2.0), layers=5,
-                            p_scale=0.9, niter_alter=10, niter_outer=10,
-                            niter_inner=1, niter_solver=30,
-                            occlusion_reasoning=True, smoothing=1)
+    return MultiFrameParams(**{**dict(
+        S=3, alpha=4.0, gamma=6.0, delta=1.0, rho=(1.0, 1.0),
+        omega=(0.0, 2.0), layers=5, p_scale=0.9, niter_alter=10,
+        niter_outer=10, niter_inner=1, niter_solver=30,
+        occlusion_reasoning=True, smoothing=1), **route})
+
+
+ROUTE_PARAMS = {
+    "merged": {},
+    "stack": dict(merge_warp=False, fused_solve=False),
+    "unfused": dict(pallas_warp=True, fused_solve=False, layers=2,
+                    niter_alter=2, niter_outer=3),
+}
+
+
+def twins():
+    """multiframe's kernel wrappers -> their plain twins."""
+    from slowflow_tpu_torch.core import solver, warp_pallas, warp_shift
+    from slowflow_tpu_torch.variational import (fused_data, fused_solve,
+                                                fused_warp)
+
+    return {"warp_assemble": fused_warp.warp_assemble_ref,
+            "solve_step": fused_solve.solve_step_ref,
+            "fused_data_system": fused_data.fused_data_system_ref,
+            "warp_stack": warp_shift.warp_stack_ref,
+            "warp_stack_pallas": warp_pallas.warp_stack_pallas_ref,
+            "sor_coupled_rb_pallas": solver.sor_coupled_rb}
 
 
 def read_flo(path) -> np.ndarray:
@@ -157,7 +199,27 @@ def _k1_inputs(b, h, w, seed, device):
             for a in (uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv)]
 
 
+def _compare(name, entry_key, kern, twin, what):
+    """Run kernel and twin once on the same inputs, record the worst
+    per-plane relative / absolute error and both times."""
+    import torch
+
+    got, want = kern(), twin()
+    torch.cuda.synchronize()
+    errs = [rel_err(g, t) for g, t in zip(got, want)]
+    worst = max(e[0] for e in errs)
+    entry = dict(entry_key, rel_err=worst, abs_err=max(e[1] for e in errs),
+                 ms=cuda_ms(kern), plain_ms=cuda_ms(twin, 2))
+    RECORD.setdefault("kernels_vs_twins", {}).setdefault(name, []).append(
+        entry)
+    check(worst <= REL_TOL,
+          f"{what}: rel err {worst:.2e} (per plane: "
+          + " ".join(f"{e[0]:.1e}" for e in errs)
+          + f"); {entry['ms']:.3f} ms vs twin {entry['plain_ms']:.3f} ms")
+
+
 def kernels_vs_twins():
+    """K2 and K1 against their twins."""
     import torch
 
     from slowflow_tpu_torch.variational import fused_solve, fused_warp
@@ -165,33 +227,16 @@ def kernels_vs_twins():
     dev = torch.device("cuda")
     p = bench_params()
     _, _, reg = p.penalties()
-    results = {"warp_assemble": [], "solve_step": []}
     for (h, w) in ((270, 480), (176, 314)):
         args = _k2_inputs(4, h, w, 0, dev)
         for mode, zero_duv in (("assembly", False), ("assembly", True),
                                ("occ", False), ("occ", True),
                                ("occ_assembly", True)):
-            def kern():
-                return fused_warp.warp_assemble(*args, p, mode=mode,
-                                                zero_duv=zero_duv)
-
-            def twin():
-                return fused_warp.warp_assemble_ref(*args, p, mode=mode,
-                                                    zero_duv=zero_duv)
-
-            got, want = kern(), twin()
-            torch.cuda.synchronize()
-            errs = [rel_err(g, t) for g, t in zip(got, want)]
-            worst = max(e[0] for e in errs)
-            entry = dict(shape=[4, h, w], mode=mode, zero_duv=zero_duv,
-                         rel_err=worst, abs_err=max(e[1] for e in errs),
-                         ms=cuda_ms(kern), plain_ms=cuda_ms(twin, 2))
-            results["warp_assemble"].append(entry)
-            check(worst <= REL_TOL,
-                  f"K2 {mode:12s} zero_duv={zero_duv!s:5} {h}x{w}: "
-                  f"rel err {worst:.2e} (per plane: "
-                  + " ".join(f"{e[0]:.1e}" for e in errs)
-                  + f"); {entry['ms']:.3f} ms vs twin {entry['plain_ms']:.3f} ms")
+            kw = dict(mode=mode, zero_duv=zero_duv)
+            _compare("warp_assemble", dict(shape=[4, h, w], **kw),
+                     lambda: fused_warp.warp_assemble(*args, p, **kw),
+                     lambda: fused_warp.warp_assemble_ref(*args, p, **kw),
+                     f"K2 {mode:12s} zero_duv={zero_duv!s:5} {h}x{w}")
 
         t = _k1_inputs(4, h, w, 1, dev)
         for method in (0, 1, 2):
@@ -200,46 +245,114 @@ def kernels_vs_twins():
                 kw = dict(alpha=p.alpha, reg_pen=reg, method=method,
                           iterations=p.niter_solver, omega=p.sor_omega,
                           with_change=True)
-
-                def kern():
-                    return fused_solve.solve_step(*t[:8], du, dv, **kw)
-
-                def twin():
-                    return fused_solve.solve_step_ref(*t[:8], du, dv, **kw)
-
-                got, want = kern(), twin()
-                torch.cuda.synchronize()
-                errs = [rel_err(g, r) for g, r in zip(got, want)]
-                worst = max(e[0] for e in errs)
-                entry = dict(shape=[4, h, w], method=method,
-                             zero_init=zero_init, rel_err=worst,
-                             abs_err=max(e[1] for e in errs),
-                             ms=cuda_ms(kern), plain_ms=cuda_ms(twin, 2))
-                results["solve_step"].append(entry)
-                check(worst <= REL_TOL,
-                      f"K1 method {method} zero_init={zero_init!s:5} "
-                      f"{h}x{w}: rel err ndu/ndv/sums "
-                      + "/".join(f"{e[0]:.1e}" for e in errs)
-                      + f"; {entry['ms']:.3f} ms vs twin "
-                      f"{entry['plain_ms']:.3f} ms")
-    RECORD["kernels_vs_twins"] = results
+                _compare("solve_step", dict(shape=[4, h, w], method=method,
+                                            zero_init=zero_init),
+                         lambda: fused_solve.solve_step(*t[:8], du, dv, **kw),
+                         lambda: fused_solve.solve_step_ref(*t[:8], du, dv,
+                                                            **kw),
+                         f"K1 method {method} zero_init={zero_init!s:5} "
+                         f"{h}x{w} (ndu, ndv, sums)")
 
 
-# ---------------------------------------------------------------- phase 3
-def slice_at_bench_config():
+def route_kernels_vs_twins():
+    """K3, K4, K5 and K6's entry against their twins; K3 on K4's stack
+    against K2."""
     import torch
 
-    from bench import _moving_sequence
-    from slowflow_tpu_torch import kernels
-    from slowflow_tpu_torch.variational import (fused_solve, fused_warp,
-                                                multiframe)
+    from slowflow_tpu_torch.core import solver_pallas, warp_pallas, warp_shift
+    from slowflow_tpu_torch.variational import fused_data, fused_warp, terms
 
     dev = torch.device("cuda")
     p = bench_params()
+    for (h, w) in ((270, 480), (176, 314)):
+        seq, wx, wy, occ, du, dv, cw = _k2_inputs(4, h, w, 0, dev)
+        shape = [4, h, w]
+        warped, masks = warp_shift.warp_stack_ref(seq, wx, wy, p.ref)
+        raw = terms.succ_mask(masks, p.ref)
+        gated = terms.gate_masks(raw, occ, p)
+        for mode, zero_duv in (("assembly", False), ("assembly", True),
+                               ("occ", False), ("occ", True),
+                               ("occ_assembly", True)):
+            args = (warped, gated if mode == "assembly" else raw, du, dv, cw,
+                    p)
+            kw = dict(mode=mode, zero_duv=zero_duv)
+            _compare("fused_data", dict(shape=shape, **kw),
+                     lambda: fused_data.fused_data_system(*args, **kw),
+                     lambda: fused_data.fused_data_system_ref(*args, **kw),
+                     f"K3 {mode:12s} zero_duv={zero_duv!s:5} {h}x{w}")
+
+        for motion, shift in (("bench", 0.0), ("20px", 20.0)):
+            fx, fy = wx + shift, wy - 0.45 * shift
+            _compare("warp_stack", dict(shape=shape, motion=motion),
+                     lambda: warp_shift.warp_stack(seq, fx, fy, p.ref),
+                     lambda: warp_shift.warp_stack_ref(seq, fx, fy, p.ref),
+                     f"K4 warp_stack {motion:5s} {h}x{w}")
+
+        factors = (-2.0, -1.0, 0.0, 1.0, 2.0)
+        _compare("warp_stack_pallas", dict(shape=shape, factors=factors),
+                 lambda: warp_pallas.warp_stack_pallas(seq, wx, wy, factors),
+                 lambda: warp_pallas.warp_stack_pallas_ref(seq, wx, wy,
+                                                           factors),
+                 f"K6 warp_stack_pallas factors -2..2 {h}x{w}")
+
+        t = _k1_inputs(4, h, w, 2, dev)
+        rng = np.random.default_rng(3)
+        wh, wv = (torch.tensor(0.5 * rng.random((4, h, w)) + 0.05,
+                               dtype=torch.float32, device=dev)
+                  for _ in range(2))
+        system = (t[8], t[9], *t[3:8], wh, wv)   # du, dv nonzero
+        kw = dict(iterations=p.niter_solver, omega=p.sor_omega)
+        _compare("sor", dict(shape=shape, iterations=p.niter_solver),
+                 lambda: solver_pallas.sor_coupled_rb_pallas(*system, **kw),
+                 lambda: solver_pallas.sor_coupled_rb(*system, **kw),
+                 f"K5 sor {p.niter_solver} sweeps from du, dv != 0 {h}x{w}")
+
+        # K3 on K4's stack (succ_mask, gated for assembly) against K2
+        kwarped, kmasks = warp_shift.warp_stack(seq, wx, wy, p.ref)
+        kraw = terms.succ_mask(kmasks, p.ref)
+        for mode in ("assembly", "occ"):
+            mask = terms.gate_masks(kraw, occ, p) if mode == "assembly" \
+                else kraw
+            _compare("stack_vs_merged", dict(shape=shape, mode=mode),
+                     lambda: fused_data.fused_data_system(
+                         kwarped, mask, du, dv, cw, p, mode=mode),
+                     lambda: fused_warp.warp_assemble(
+                         seq, wx, wy, occ, du, dv, cw, p, mode=mode),
+                     f"K3 on K4's stack vs K2 {mode:8s} {h}x{w}")
+
+
+# ---------------------------------------------------------------- phase 3
+def _bench_scene(b, h, w, device):
+    import torch
+
+    from bench import _moving_sequence
+
+    return torch.tensor(np.stack([_moving_sequence(5, h, w, 1.5 + 0.2 * s,
+                                                   -0.8, seed=s)
+                                  for s in range(b)]), device=device)
+
+
+def _check_launches(route, counts, what):
+    used = {k for k, v in counts.items() if v > 0}
+    check(used == ROUTE_KERNELS[route],
+          f"{what} launched {sorted(used)}; the {route} route launches "
+          f"{sorted(ROUTE_KERNELS[route])} and nothing else")
+
+
+def _slice(route, with_twins=True):
+    """variational_mt_batched on one route at full width, through the
+    kernels (and through the twins), on the card."""
+    import torch
+
+    from slowflow_tpu_torch import kernels
+    from slowflow_tpu_torch.variational import multiframe
+
+    dev = torch.device("cuda")
+    p = bench_params(**ROUTE_PARAMS[route])
+    check(p.route().assembly == route, f"{route} params resolve to "
+          f"{p.route()}")
     b, h, w = 4, 270, 480
-    seq = torch.tensor(np.stack([_moving_sequence(5, h, w, 1.5 + 0.2 * s,
-                                                  -0.8, seed=s)
-                                 for s in range(b)]), device=dev)
+    seq = _bench_scene(b, h, w, dev)
     zero = torch.zeros((b, h, w), device=dev)
 
     def solve():
@@ -257,62 +370,74 @@ def slice_at_bench_config():
         return out, wall, dict(kernels.LAUNCHES)
 
     (kwx, kwy, kocc), k_wall, k_counts = timed()
-    with mock.patch.object(multiframe, "warp_assemble",
-                           fused_warp.warp_assemble_ref), \
-            mock.patch.object(multiframe, "solve_step",
-                              fused_solve.solve_step_ref):
-        (twx, twy, tocc), t_wall, t_counts = timed()
-
     err = abs(float(kwx[0, 8:-8, 8:-8].median()) - 1.5)
+    rec = dict(route=str(p.route()), batch=b, height=h, width=w,
+               layers=p.layers, niter_alter=p.niter_alter,
+               niter_outer=p.niter_outer, kernel_wall_s=k_wall,
+               kernel_counts=k_counts, flow_recovery_err_px=err,
+               jets_per_s=b / k_wall)
+    RECORD.setdefault("slices", {})[route] = rec
+    print(f"{route} slice ({p.layers} levels, {p.niter_alter} x "
+          f"{p.niter_outer}) wall per batch of {b}: kernels {k_wall:.3f} s "
+          f"({b / k_wall:.3f} jets/s); flow_recovery_err_px {err:.5f}")
+    print(f"launch counts: kernels {k_counts}")
+    check(bool(torch.isfinite(kwx).all() & torch.isfinite(kwy).all()),
+          f"{route} slice flow is finite")
+    _check_launches(route, k_counts, f"{route} kernel run")
+    if not with_twins:
+        return
+    with contextlib.ExitStack() as stack:
+        for name, fn in twins().items():
+            stack.enter_context(mock.patch.object(multiframe, name, fn))
+        (twx, twy, tocc), t_wall, t_counts = timed()
     d = torch.hypot(kwx - twx, kwy - twy)
     med, mean = float(d.median()), float(d.mean())
     labels = float((kocc != tocc).float().mean())
-    RECORD["slice"] = dict(batch=b, height=h, width=w, kernel_wall_s=k_wall,
-                           twin_wall_s=t_wall, kernel_counts=k_counts,
-                           twin_counts=t_counts, flow_recovery_err_px=err,
-                           flow_diff_median_px=med, flow_diff_mean_px=mean,
-                           flow_diff_max_px=float(d.max()),
-                           label_share_differ=labels,
-                           jets_per_s=b / k_wall)
-    print(f"slice wall per batch of {b}: kernels {k_wall:.3f} s "
-          f"({b / k_wall:.3f} jets/s), twins {t_wall:.3f} s")
-    print(f"launch counts: kernels {k_counts}, twins {t_counts}")
-    check(bool(torch.isfinite(kwx).all() & torch.isfinite(kwy).all()),
-          "slice flow is finite")
-    check(all(v > 0 for v in k_counts.values()),
-          "kernel run launched both kernels")
+    rec.update(twin_wall_s=t_wall, twin_counts=t_counts,
+               flow_diff_median_px=med, flow_diff_mean_px=mean,
+               flow_diff_max_px=float(d.max()), label_share_differ=labels)
+    print(f"{route} slice twins {t_wall:.3f} s; launch counts {t_counts}")
     check(all(v == 0 for v in t_counts.values()),
-          "twin run launched no kernel")
-    check(err <= RECOVERY_TOL, f"flow_recovery_err_px {err:.5f} <= "
+          f"{route} twin run launched no kernel")
+    check(err <= RECOVERY_TOL, f"{route} flow_recovery_err_px {err:.5f} <= "
           f"{RECOVERY_TOL}")
     check(med <= FLOW_MEDIAN_TOL and mean <= FLOW_MEAN_TOL,
-          f"kernel vs twin flow |d|: median {med:.2e} px, mean {mean:.2e} "
-          f"px, max {float(d.max()):.2e} px")
+          f"{route} kernel vs twin flow |d|: median {med:.2e} px, mean "
+          f"{mean:.2e} px, max {float(d.max()):.2e} px")
     check(labels <= LABEL_SHARE_TOL,
-          f"kernel vs twin occlusion labels differ on {labels:.4%}")
+          f"{route} kernel vs twin occlusion labels differ on {labels:.4%}")
 
 
-def slice_profile():
+def slice_merged():
+    _slice("merged")
+
+
+def slice_stack_composed():
+    _slice("stack")
+
+
+def slice_unfused_pallas_warp():
+    _slice("unfused", with_twins=False)
+
+
+def _profile(route):
     """One kernel-route slice run under torch.profiler: device time by
     kernel and the device's idle share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from bench import _moving_sequence
     from slowflow_tpu_torch.variational import multiframe
 
     dev = torch.device("cuda")
     b, h, w = 4, 270, 480
-    seq = torch.tensor(np.stack([_moving_sequence(5, h, w, 1.5 + 0.2 * s,
-                                                  -0.8, seed=s)
-                                 for s in range(b)]), device=dev)
+    seq = _bench_scene(b, h, w, dev)
     zero = torch.zeros((b, h, w), device=dev)
+    p = bench_params(**ROUTE_PARAMS[route])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        multiframe.variational_mt_batched(zero, zero, seq, bench_params(),
-                                          device=dev)
+        multiframe.variational_mt_batched(zero, zero, seq, p, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = {}
@@ -324,14 +449,19 @@ def slice_profile():
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    RECORD["profile"] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
-                             idle_share=1 - busy / (wall * 1e3),
-                             top_kernels_ms=top)
-    print(f"profiled slice: wall {wall * 1e3:.1f} ms, device busy "
+    RECORD.setdefault("profiles", {})[route] = dict(
+        wall_ms=wall * 1e3, device_busy_ms=busy,
+        idle_share=1 - busy / (wall * 1e3), top_kernels_ms=top)
+    print(f"profiled {route} slice: wall {wall * 1e3:.1f} ms, device busy "
           f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
     for name, ms in top:
         print(f"  {ms:9.2f} ms  {name[:100]}")
-    check(busy > 0, "profiler saw device time")
+    check(busy > 0, f"profiler saw device time on the {route} route")
+
+
+def slice_profiles():
+    for route in ("merged", "stack"):
+        _profile(route)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -361,10 +491,8 @@ def cli_stage2():
                    + base[y0 + 1, x0 + 1] * fx * fy)
             Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
                 seq_dir / f"frame_{f:03d}.png")
-        cfg = tmp / "slow_flow.cfg"
-        cfg.write_text(textwrap.dedent(f"""\
+        base_cfg = textwrap.dedent(f"""\
         file\t{seq_dir}/frame_%03i.png
-        output\t{tmp}/sf_out
         Jets\t2
         start\t2
         max_fps\t40
@@ -382,7 +510,9 @@ def cli_stage2():
         slow_flow_niter_alter\t2
         slow_flow_niter_outer\t4
         slow_flow_niter_solver\t20
-        """))
+        """)
+        cfg = tmp / "slow_flow.cfg"
+        cfg.write_text(base_cfg + f"output\t{tmp}/sf_out\n")
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "slowflow_tpu_torch.cli.slow_flow",
@@ -392,22 +522,45 @@ def cli_stage2():
         check(proc.returncode == 0,
               f"CLI exit code {proc.returncode} "
               f"({time.perf_counter() - t0:.1f} s)")
-        out = tmp / "sf_out"
-        inner = (slice(12, -12), slice(12, -12))
-        cli = {}
-        for name, sign in (("frame_002.flo", 1), ("frame_003.flo", 1),
-                           ("frame_003_back.flo", -1)):
-            path = out / name
-            if not path.exists():
-                check(False, f"CLI wrote {name}")
-                continue
-            flow = read_flo(path)[inner]
-            mu, mv = float(flow[..., 0].mean()), float(flow[..., 1].mean())
-            cli[name] = (mu, mv)
-            check(abs(mu - sign * u) <= 0.1 and abs(mv - sign * v) <= 0.1,
-                  f"CLI {name}: interior mean ({mu:.3f}, {mv:.3f}) vs "
-                  f"({sign * u}, {sign * v})")
-        RECORD["cli"] = cli
+        RECORD["cli"] = _cli_flows(tmp / "sf_out", u, v, "CLI")
+
+        # the route keys through the CLI's own parameter parsing, in this
+        # process so the launch counts can be read
+        from slowflow_tpu_torch import kernels
+        from slowflow_tpu_torch.cli.slow_flow import main as cli_main
+
+        cfg = tmp / "slow_flow_routes.cfg"
+        cfg.write_text(base_cfg + f"output\t{tmp}/sf_routes\n"
+                       "slow_flow_merge_warp\t0\nslow_flow_fused_solve\t0\n"
+                       "slow_flow_pallas_sor\t1\n")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_main([str(cfg), "-batch", "2"])
+        counts = dict(kernels.LAUNCHES)
+        check(rc == 0, f"CLI with route keys: exit code {rc} "
+              f"({time.perf_counter() - t0:.1f} s), launches {counts}")
+        _check_launches("stack", counts, "CLI with route keys")
+        RECORD["cli_route_keys"] = dict(
+            launches=counts,
+            flows=_cli_flows(tmp / "sf_routes", u, v, "CLI with route keys"))
+
+
+def _cli_flows(out, u, v, what):
+    inner = (slice(12, -12), slice(12, -12))
+    flows = {}
+    for name, sign in (("frame_002.flo", 1), ("frame_003.flo", 1),
+                       ("frame_003_back.flo", -1)):
+        path = out / name
+        if not path.exists():
+            check(False, f"{what} wrote {name}")
+            continue
+        flow = read_flo(path)[inner]
+        mu, mv = float(flow[..., 0].mean()), float(flow[..., 1].mean())
+        flows[name] = (mu, mv)
+        check(abs(mu - sign * u) <= 0.1 and abs(mv - sign * v) <= 0.1,
+              f"{what} {name}: interior mean ({mu:.3f}, {mv:.3f}) vs "
+              f"({sign * u}, {sign * v})")
+    return flows
 
 
 def main() -> int:
@@ -430,34 +583,50 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    for fn in (build, kernels_vs_twins, slice_at_bench_config,
-               slice_profile, cli_stage2):
+    for fn in (build, kernels_vs_twins, route_kernels_vs_twins, slice_merged,
+               slice_stack_composed, slice_unfused_pallas_warp,
+               slice_profiles, cli_stage2):
         phase(fn)
 
     kv = RECORD.get("kernels_vs_twins", {})
-    sl = RECORD.get("slice", {})
+    slices = RECORD.get("slices", {})
+    bench_shape = [4, 270, 480]
 
-    def kernel_entry(name, source, replaces, main_case):
+    def kernel_entry(name, source, replaces, route, main_case):
         rows = kv.get(name, [])
-        main = [r for r in rows if main_case(r)]
+        main = [r for r in rows if r["shape"] == bench_shape and main_case(r)]
+        counts = slices.get(route, {}).get("kernel_counts", {})
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": sl.get("kernel_counts", {}).get(name, 0),
+                "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": max((r["abs_err"] for r in rows), default=None),
                 "ms": main[0]["ms"] if main else None,
                 "plain_ms": main[0]["plain_ms"] if main else None}
 
+    csrc = "slowflow_tpu_torch/csrc/"
     line = {"kernels": [
-        kernel_entry("warp_assemble",
-                     "slowflow_tpu_torch/csrc/warp_assemble.cu",
-                     "slowflow_tpu/variational/fused_warp.py:132",
-                     lambda r: r["shape"] == [4, 270, 480]
-                     and r["mode"] == "assembly" and r["zero_duv"]),
-        kernel_entry("solve_step", "slowflow_tpu_torch/csrc/solve_step.cu",
-                     "slowflow_tpu/variational/fused_solve.py:166",
-                     lambda r: r["shape"] == [4, 270, 480]
-                     and r["method"] == 1 and r["zero_init"]),
+        kernel_entry("warp_assemble", csrc + "warp_assemble.cu",
+                     "slowflow_tpu/variational/fused_warp.py:132", "merged",
+                     lambda r: r["mode"] == "assembly" and r["zero_duv"]),
+        kernel_entry("solve_step", csrc + "solve_step.cu",
+                     "slowflow_tpu/variational/fused_solve.py:166", "merged",
+                     lambda r: r["method"] == 1 and r["zero_init"]),
+        kernel_entry("fused_data", csrc + "fused_data.cu",
+                     "slowflow_tpu/variational/fused_data.py:374", "stack",
+                     lambda r: r["mode"] == "assembly" and r["zero_duv"]),
+        kernel_entry("warp_stack", csrc + "warp_stack.cu",
+                     "slowflow_tpu/core/warp_shift.py:43", "stack",
+                     lambda r: r["motion"] == "bench"),
+        kernel_entry("sor", csrc + "solve_step.cu",
+                     "slowflow_tpu/core/solver_pallas.py:34", "stack",
+                     lambda r: True),
+        kernel_entry("warp_stack_pallas", csrc + "warp_stack.cu",
+                     "slowflow_tpu/core/warp_pallas.py:27", "unfused",
+                     lambda r: True),
     ]}
+    for entry in line["kernels"]:
+        check(entry["launches"] > 0 and entry["ms"] is not None,
+              f"{entry['name']}: {entry['launches']} launches on its route, "
+              f"{entry['ms']} ms")
     RECORD["failures"] = FAILURES
     with open(OUT_DIR / "chip_smoke.json", "w") as fh:
         json.dump(RECORD, fh, indent=1)

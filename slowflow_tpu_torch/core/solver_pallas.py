@@ -1,0 +1,49 @@
+"""K5: red-black coupled SOR sweeps on a given system (counterpart of the TPU
+kernel `slowflow_tpu.core.solver_pallas._sor_kernel`, wrapper
+`sor_coupled_rb_pallas`).
+
+`sor_coupled_rb_pallas` dispatches on the tensors' device: CPU tensors go to
+the plain twin core/solver.py `sor_coupled_rb`, CUDA tensors to
+`sf_sor_coupled_rb` in csrc/solve_step.cu (or an error). The kernel zeroes
+the boundary weights and forms the 2x2 inverse in its prologue, as the TPU
+wrapper does before its kernel, then reuses K1's half-sweep launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from .solver import sor_coupled_rb
+
+
+def sor_coupled_rb_pallas(du, dv, a11, a12, a22, b1, b2, wh, wv, *,
+                          iterations: int = 30, omega: float = 1.9):
+    """All planes [..., H, W] float32; du, dv are the starting increment.
+    Returns new (du, dv); the inputs are left as they were."""
+    if du.device.type == "cpu":
+        return sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv,
+                              iterations=iterations, omega=omega)
+    if du.device.type != "cuda":
+        raise ValueError(f"sor_coupled_rb_pallas: unsupported device "
+                         f"{du.device}")
+    dev = du.device
+    shape = tuple(du.shape)
+    if len(shape) < 2:
+        raise ValueError(f"du: expected [..., H, W], got {shape}")
+    h, w = shape[-2:]
+    named = dict(du=du, dv=dv, a11=a11, a12=a12, a22=a22, b1=b1, b2=b2,
+                 wh=wh, wv=wv)
+    for name, t in named.items():
+        kernels.require_f32_cuda(name, t, shape, dev)
+    b = du.numel() // (h * w)
+    ndu = torch.empty_like(du)
+    ndv = torch.empty_like(dv)
+    scratch = torch.empty((7, b, h, w), dtype=torch.float32, device=dev)
+    lib = kernels.load()
+    err = lib.sf_sor_coupled_rb(
+        *(kernels.ptr(t) for t in (du, dv, a11, a12, a22, b1, b2, wh, wv,
+                                   ndu, ndv, scratch)),
+        b, h, w, int(iterations), float(omega), kernels.stream_ptr(dev))
+    kernels.check(err, "sor")
+    kernels.LAUNCHES["sor"] += 1
+    return ndu, ndv

@@ -26,6 +26,11 @@
 // reduced deterministically: fixed per-block partials, then one block per
 // jet sums them in a fixed order (float atomics would make the outer loop's
 // `change >= thres` exits vary from run to run).
+//
+// K5 (`sf_sor_coupled_rb`, end of file) is the sweep loop alone on a given
+// system, for the composed solve: its own prologue fills the same scratch
+// planes from given weights, then the same half-sweep launches. It is bound
+// as K1's sweeps are.
 #include "common.cuh"
 
 namespace {
@@ -166,6 +171,60 @@ __global__ void half_sweep_kernel(float* __restrict__ du, float* __restrict__ dv
   dv[q] = (1.f - omega) * dv[q] + omega * nv;
 }
 
+// K5's prologue: the scratch planes of a given system. wh loses its last
+// column and wv its last row (boundary), the 2x2 inverse uses the
+// neighbour-weight sum in core/solver.py's order; ndu / ndv start from
+// du / dv.
+__global__ void sor_prologue_kernel(
+    const float* __restrict__ du, const float* __restrict__ dv,
+    const float* __restrict__ a11, const float* __restrict__ a12,
+    const float* __restrict__ a22, const float* __restrict__ b1,
+    const float* __restrict__ b2, const float* __restrict__ wh,
+    const float* __restrict__ wv, float* __restrict__ ndu,
+    float* __restrict__ ndv, float* __restrict__ scratch, int B, int H,
+    int W) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int b = blockIdx.z;
+  if (i >= H || j >= W) return;
+  const size_t HW = (size_t)H * W, plane = (size_t)B * HW;
+  const size_t q = b * HW + (size_t)i * W + j;
+  const float w_e = j < W - 1 ? wh[q] : 0.f;
+  const float w_s = i < H - 1 ? wv[q] : 0.f;
+  const float w_w = j > 0 ? wh[q - 1] : 0.f;
+  const float w_n = i > 0 ? wv[q - W] : 0.f;
+  const float sum_w = w_n + w_w + w_s + w_e;
+  const float A11 = a11[q] + sum_w, A22 = a22[q] + sum_w, c12 = a12[q];
+  float det = A11 * A22 - c12 * c12;
+  det = det == 0.f ? 1.f : det;
+  scratch[q] = w_e;
+  scratch[plane + q] = w_s;
+  scratch[2 * plane + q] = b1[q];
+  scratch[3 * plane + q] = b2[q];
+  scratch[4 * plane + q] = A22 / det;
+  scratch[5 * plane + q] = -c12 / det;
+  scratch[6 * plane + q] = A11 / det;
+  ndu[q] = du[q];
+  ndv[q] = dv[q];
+}
+
+// 2 * iterations half-sweep launches on ndu / ndv (K1 and K5).
+cudaError_t launch_sweeps(float* ndu, float* ndv, const float* scratch, int B,
+                          int H, int W, int iterations, float omega,
+                          cudaStream_t st) {
+  const int half_w = (W + 1) / 2;
+  const dim3 sblock(32, 8), sgrid((half_w + 31) / 32, (H + 7) / 8, B);
+  for (int it = 0; it < iterations; ++it) {
+    for (int color = 0; color < 2; ++color) {
+      half_sweep_kernel<<<sgrid, sblock, 0, st>>>(ndu, ndv, scratch, B, H, W,
+                                                  color, omega);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
+}
+
 constexpr int RED_THREADS = 256, RED_BLOCKS = 64;
 
 // partials[b][blk][2]: fixed-order block sums of |ndu - du|, |ndv - dv|
@@ -233,21 +292,39 @@ extern "C" int sf_solve_step(const float* uu, const float* vv,
   const dim3 pblock(32, 8), pgrid((W + 31) / 32, (H + 7) / 8, B);
   prologue_kernel<<<pgrid, pblock, 0, st>>>(a, du, dv, ndu, ndv, scratch, B);
   cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_sweeps(ndu, ndv, scratch, B, H, W, iterations, omega, st);
   if (err != cudaSuccess) return (int)err;
-  const int half_w = (W + 1) / 2;
-  const dim3 sblock(32, 8), sgrid((half_w + 31) / 32, (H + 7) / 8, B);
-  for (int it = 0; it < iterations; ++it) {
-    for (int color = 0; color < 2; ++color) {
-      half_sweep_kernel<<<sgrid, sblock, 0, st>>>(ndu, ndv, scratch, B, H, W,
-                                                  color, omega);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return (int)err;
-    }
-  }
   if (sums) {
     change_partials_kernel<<<dim3(RED_BLOCKS, B), RED_THREADS, 0, st>>>(
         ndu, ndv, du, dv, H * W, partials);
     change_final_kernel<<<B, 32, 0, st>>>(partials, sums);
   }
   return (int)cudaGetLastError();
+}
+
+// K5: `iterations` red-black coupled SOR sweeps on a given system
+// (replaces the TPU kernel slowflow_tpu/core/solver_pallas.py `_sor_kernel`;
+// plain twin core/solver.py `sor_coupled_rb`). The prologue writes K1's
+// scratch layout from the given weights, then K1's half-sweep kernel runs
+// 2 * iterations times on ndu / ndv, which start from du / dv. Every plane
+// is [B, H, W]; du, dv and the system are read only. scratch holds
+// 7 * B * H * W floats. Returns a cudaError_t code (0 = launched).
+extern "C" int sf_sor_coupled_rb(const float* du, const float* dv,
+                                 const float* a11, const float* a12,
+                                 const float* a22, const float* b1,
+                                 const float* b2, const float* wh,
+                                 const float* wv, float* ndu, float* ndv,
+                                 float* scratch, int B, int H, int W,
+                                 int iterations, float omega, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || iterations < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 pblock(32, 8), pgrid((W + 31) / 32, (H + 7) / 8, B);
+  sor_prologue_kernel<<<pgrid, pblock, 0, st>>>(du, dv, a11, a12, a22, b1, b2,
+                                                wh, wv, ndu, ndv, scratch, B,
+                                                H, W);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_sweeps(ndu, ndv, scratch, B, H, W, iterations, omega, st);
+  return (int)err;
 }

@@ -26,159 +26,19 @@
 // of every window frame into dynamic shared memory (5 frames x 3 channels x
 // 24 x 40 floats = 57.6 KB at S = 3). Halo pixels outside the image take the
 // warped value at the clamped image pixel, which is the edge replication the
-// reference applies to each warped plane. Per offset and pair, the block
-// writes Ix (rows and cols +-2) and Iy (rows +-2) to shared scratch; each
-// thread then forms its own Ixx/Ixy/Iyy/Ixz/Iyz from them. Ixx and Iyy clamp
-// their taps on the DERIVATIVE plane at the image edge (clamped global
-// index), as conv_horiz(ix) / conv_vert(iy) do in the reference; Ixy and the
-// z-derivatives need no clamp because the halo rows/cols are replicas.
+// reference applies to each warped plane. The derivatives and the assembly
+// are assemble.cuh's `assemble_tile`, shared with K3 (fused_data.cu); the
+// mask of offset s is the warp-coordinate validity of its frame, times the
+// occlusion gate in assembly mode.
 // Warp coordinates use __fmul_rn/__fadd_rn so that floor() sees the same
 // rounded x = j + fac * wx as the plain version (no FMA contraction there);
 // elsewhere nvcc's FMA contraction makes results differ from the twin in
 // the last bits.
-#include "common.cuh"
+#include "assemble.cuh"
+
+using namespace sf;
 
 namespace {
-
-constexpr int TW = 32, TH = 16, EXT = 4, NT = TW * TH;
-constexpr int LW = TW + 2 * EXT, LH = TH + 2 * EXT;  // frame tile 40 x 24
-constexpr int XW = TW + 4, XH = TH + 4;              // Ix tile 36 x 20
-constexpr int YW = TW, YH = TH + 4;                  // Iy tile 32 x 20
-constexpr int MAXN = 8;                              // offsets, S <= 5
-constexpr int N_HEAD = 15, N_ARR = 14;
-constexpr int N_PARAMS = N_HEAD + N_ARR * MAXN;
-constexpr float DATANORM = (float)(0.1 * 0.1);
-constexpr float DT_SCALE = (float)0.01;
-// DERIV_5PT = [1/12, -8/12, 0, 8/12, -1/12] in float32
-constexpr float C0 = (float)(1.0 / 12.0), C1 = -(float)(8.0 / 12.0);
-constexpr float C3 = (float)(8.0 / 12.0), C4 = -(float)(1.0 / 12.0);
-
-enum { MODE_ASSEMBLY = 0, MODE_OCC = 1, MODE_OCC_ASSEMBLY = 2 };
-
-struct AsmParams {
-  int ref, delta_on, gamma_on, norm, one_direction;
-  sf::Pen color, grad;
-  float data_norm, occ_penalty;
-  // per offset s: data-term weights f32(rho_w[s]) * f32(delta/3) etc.
-  float wd_s[MAXN], wg_s[MAXN], wd_r[MAXN], wg_r[MAXN];
-  // term enabled: assembly tests the direction-zeroed weights, occ the raw
-  float on_asm_s[MAXN], on_asm_r[MAXN], on_raw_s[MAXN], on_raw_r[MAXN];
-  float fac[MAXN];                                 // to-reference factor
-  float od_s[MAXN], og_s[MAXN], od_r[MAXN], og_r[MAXN];  // occ-cost weights
-  float contrib[MAXN];                             // 2 rho + 2 omega (raw)
-};
-
-__device__ __forceinline__ float d5(float a, float b, float c, float d) {
-  // taps at -2, -1, +1, +2 summed in the reference's order
-  return ((C0 * a + C1 * b) + C3 * c) + C4 * d;
-}
-
-// Assembly of one pair's data terms into acc[5] = a11, a12, a22, b1, b2.
-// d[c][0..7] = ix, iy, iz, ixx, ixy, iyy, ixz, iyz of channel c.
-template <bool ZERO_DUV>
-__device__ __forceinline__ void assemble_succ(
-    const AsmParams& P, int s, float m, const float (&d)[3][8],
-    const float (&cwv)[3], float du, float dv, float (&acc)[5]) {
-  if (P.delta_on) {
-    float nn[3], arg = 0.f;
-    for (int c = 0; c < 3; ++c) {
-      const float ix = d[c][0], iy = d[c][1], iz = d[c][2];
-      const float t = ZERO_DUV ? cwv[c] * iz : cwv[c] * (iz - ix * du - iy * dv);
-      nn[c] = P.norm ? ix * ix + iy * iy + DATANORM : 1.f;
-      arg += P.norm ? t * t / nn[c] : t * t;
-    }
-    const float wgt = m * P.wd_s[s] * sf::pen_deriv(P.color, arg);
-    for (int c = 0; c < 3; ++c) {
-      const float ix = d[c][0], iy = d[c][1], iz = d[c][2];
-      const float coef = P.norm ? wgt * cwv[c] / nn[c] : wgt * cwv[c];
-      acc[0] += coef * ix * ix;
-      acc[1] += coef * ix * iy;
-      acc[2] += coef * iy * iy;
-      acc[3] += coef * iz * ix;
-      acc[4] += coef * iz * iy;
-    }
-  }
-  if (P.gamma_on) {
-    float n1[3], n2[3], arg = 0.f;
-    for (int c = 0; c < 3; ++c) {
-      const float ixx = d[c][3], ixy = d[c][4], iyy = d[c][5];
-      const float ixz = d[c][6], iyz = d[c][7];
-      const float t1 = ZERO_DUV ? cwv[c] * ixz : cwv[c] * (ixz - ixx * du - ixy * dv);
-      const float t2 = ZERO_DUV ? cwv[c] * iyz : cwv[c] * (iyz - ixy * du - iyy * dv);
-      if (P.norm) {
-        n1[c] = ixx * ixx + ixy * ixy + DATANORM;
-        n2[c] = iyy * iyy + ixy * ixy + DATANORM;
-        arg += t1 * t1 / n1[c] + t2 * t2 / n2[c];
-      } else {
-        n1[c] = n2[c] = 1.f;
-        arg += t1 * t1 + t2 * t2;
-      }
-    }
-    const float wgt = m * P.wg_s[s] * sf::pen_deriv(P.grad, arg);
-    for (int c = 0; c < 3; ++c) {
-      const float ixx = d[c][3], ixy = d[c][4], iyy = d[c][5];
-      const float ixz = d[c][6], iyz = d[c][7];
-      const float c1 = wgt * cwv[c] / n1[c], c2 = wgt * cwv[c] / n2[c];
-      acc[0] += c1 * ixx * ixx + c2 * ixy * ixy;
-      acc[1] += c1 * ixx * ixy + c2 * ixy * iyy;
-      acc[2] += c2 * iyy * iyy + c1 * ixy * ixy;
-      acc[3] += c1 * ixx * ixz + c2 * ixy * iyz;
-      acc[4] += c2 * iyy * iyz + c1 * ixy * ixz;
-    }
-  }
-}
-
-template <bool ZERO_DUV>
-__device__ __forceinline__ void assemble_ref(
-    const AsmParams& P, int s, float m, const float (&d)[3][8],
-    const float (&cwv)[3], float du, float dv, float (&acc)[5]) {
-  const float fac = P.fac[s], facsq = fac * fac;
-  if (P.delta_on) {
-    float nn[3], arg = 0.f;
-    for (int c = 0; c < 3; ++c) {
-      const float ix = d[c][0], iy = d[c][1], iz = d[c][2];
-      const float t = ZERO_DUV ? cwv[c] * iz
-                               : cwv[c] * (iz + ix * fac * du + iy * fac * dv);
-      nn[c] = P.norm ? facsq * (ix * ix + iy * iy) + DATANORM : facsq;
-      arg += t * t / nn[c];
-    }
-    const float wgt = m * P.wd_r[s] * sf::pen_deriv(P.color, arg);
-    for (int c = 0; c < 3; ++c) {
-      const float ix = d[c][0], iy = d[c][1], iz = d[c][2];
-      const float coef = wgt * cwv[c] / nn[c];
-      acc[3] -= coef * fac * iz * ix;
-      acc[4] -= coef * fac * iz * iy;
-      acc[0] += coef * facsq * ix * ix;
-      acc[1] += coef * facsq * ix * iy;
-      acc[2] += coef * facsq * iy * iy;
-    }
-  }
-  if (P.gamma_on) {
-    float n1[3], n2[3], arg = 0.f;
-    for (int c = 0; c < 3; ++c) {
-      const float ixx = d[c][3], ixy = d[c][4], iyy = d[c][5];
-      const float ixz = d[c][6], iyz = d[c][7];
-      const float t1 = ZERO_DUV ? cwv[c] * ixz
-                                : cwv[c] * (ixz + ixx * fac * du + ixy * fac * dv);
-      const float t2 = ZERO_DUV ? cwv[c] * iyz
-                                : cwv[c] * (iyz + ixy * fac * du + iyy * fac * dv);
-      n1[c] = P.norm ? facsq * (ixx * ixx + ixy * ixy) + DATANORM : facsq;
-      n2[c] = P.norm ? facsq * (iyy * iyy + ixy * ixy) + DATANORM : facsq;
-      arg += t1 * t1 / n1[c] + t2 * t2 / n2[c];
-    }
-    const float wgt = m * P.wg_r[s] * sf::pen_deriv(P.grad, arg);
-    for (int c = 0; c < 3; ++c) {
-      const float ixx = d[c][3], ixy = d[c][4], iyy = d[c][5];
-      const float ixz = d[c][6], iyz = d[c][7];
-      const float c1 = wgt * cwv[c] / n1[c], c2 = wgt * cwv[c] / n2[c];
-      acc[3] -= c1 * fac * ixx * ixz + c2 * fac * ixy * iyz;
-      acc[4] -= c2 * fac * iyy * iyz + c1 * fac * ixy * ixz;
-      acc[0] += c1 * facsq * ixx * ixx + c2 * facsq * ixy * ixy;
-      acc[1] += c1 * facsq * ixx * ixy + c2 * facsq * ixy * iyy;
-      acc[2] += c2 * facsq * iyy * iyy + c1 * facsq * ixy * ixy;
-    }
-  }
-}
 
 template <int MODE, bool ZERO_DUV>
 __global__ void __launch_bounds__(NT) warp_assemble_kernel(
@@ -188,7 +48,7 @@ __global__ void __launch_bounds__(NT) warp_assemble_kernel(
     const float* __restrict__ cw, float* __restrict__ out, int B, int H,
     int W, AsmParams P) {
   extern __shared__ float smem[];
-  const int ref = P.ref, F = 2 * ref + 1, N = 2 * ref;
+  const int ref = P.ref, F = 2 * ref + 1;
   float* frames = smem;                  // [F][3][LH][LW]
   float* sx = frames + F * 3 * LH * LW;  // [3][XH][XW]  Ix
   float* sy = sx + 3 * XH * XW;          // [3][YH][YW]  Iy
@@ -204,8 +64,8 @@ __global__ void __launch_bounds__(NT) warp_assemble_kernel(
   for (int idx = tid; idx < F * LH * LW; idx += NT) {
     const int k = idx / (LH * LW), r = idx % (LH * LW);
     const int ly = r / LW, lx = r % LW;
-    const int gy = sf::clampi(y0 - EXT + ly, 0, H - 1);
-    const int gx = sf::clampi(x0 - EXT + lx, 0, W - 1);
+    const int gy = clampi(y0 - EXT + ly, 0, H - 1);
+    const int gx = clampi(x0 - EXT + lx, 0, W - 1);
     const float* src = seq + (size_t)(b * F + k) * 3 * HW;
     float* dst = frames + (size_t)k * 3 * LH * LW + ly * LW + lx;
     if (k == ref) {
@@ -220,8 +80,8 @@ __global__ void __launch_bounds__(NT) warp_assemble_kernel(
     const float dx = x - xf, dy = y - yf;
     const int xi = (int)fminf(fmaxf(xf, -1.f), (float)W);
     const int yi = (int)fminf(fmaxf(yf, -1.f), (float)H);
-    const int xa = sf::clampi(xi, 0, W - 1), xb = sf::clampi(xi + 1, 0, W - 1);
-    const int ya = sf::clampi(yi, 0, H - 1), yb = sf::clampi(yi + 1, 0, H - 1);
+    const int xa = clampi(xi, 0, W - 1), xb = clampi(xi + 1, 0, W - 1);
+    const int ya = clampi(yi, 0, H - 1), yb = clampi(yi + 1, 0, H - 1);
     for (int c = 0; c < 3; ++c) {
       const float* s = src + c * HW;
       const float top = (1.f - dx) * s[ya * W + xa] + dx * s[ya * W + xb];
@@ -231,15 +91,9 @@ __global__ void __launch_bounds__(NT) warp_assemble_kernel(
   }
   __syncthreads();
 
-  // ---- per-pixel state ----
-  const int ox = threadIdx.x, oy = threadIdx.y;
-  const int gx = x0 + ox, gy = y0 + oy;
-  const bool live = gx < W && gy < H;
+  // ---- self-mask: warp-coordinate validity, occlusion gate in assembly ----
+  const int gx = x0 + (int)threadIdx.x, gy = y0 + (int)threadIdx.y;
   const size_t pp = (size_t)min(gy, H - 1) * W + min(gx, W - 1);
-  float cwv[3];
-  for (int c = 0; c < 3; ++c) cwv[c] = cw[(size_t)(b * 3 + c) * HW + pp];
-  const float duv = ZERO_DUV ? 0.f : du[b * HW + pp];
-  const float dvv = ZERO_DUV ? 0.f : dv[b * HW + pp];
   const float fx = fxp[pp], fy = fyp[pp];
   float gate_b = 1.f, gate_f = 1.f;
   if (MODE == MODE_ASSEMBLY) {
@@ -248,17 +102,7 @@ __global__ void __launch_bounds__(NT) warp_assemble_kernel(
     gate_b = P.one_direction ? 0.f : (o >= 0.f ? 1.f : 0.f) / factor;
     gate_f = (o <= 0.f ? 1.f : 0.f) / factor;
   }
-  // clamped tap positions (local Ix / Iy tile coordinates) for Ixx / Iyy
-  int cx[5], cy[5];
-  for (int t = 0; t < 5; ++t) {
-    cx[t] = sf::clampi(gx + t - 2, 0, W - 1) - x0 + 2;
-    cy[t] = sf::clampi(gy + t - 2, 0, H - 1) - y0 + 2;
-  }
-
-  float acc[2][5] = {};
-  float e0 = 0.f, e1 = 0.f, n0 = 0.f, n1 = 0.f;
-
-  for (int s = 0; s < N; ++s) {
+  auto mask_of = [&](int s) {
     // warp-coordinate validity of the frame serving offset s
     const int km = s < ref ? s : s + 1;
     const float facm = (float)(km - ref);
@@ -267,130 +111,16 @@ __global__ void __launch_bounds__(NT) warp_assemble_kernel(
     float m = (xm >= 0.f && xm <= (float)(W - 1) && ym >= 0.f &&
                ym <= (float)(H - 1)) ? 1.f : 0.f;
     if (MODE == MODE_ASSEMBLY) m *= s < ref ? gate_b : gate_f;
-    float term = 0.f;
-    float(&a)[5] = acc[(MODE == MODE_OCC_ASSEMBLY && s >= ref) ? 1 : 0];
-
-    for (int pair = 0; pair < 2; ++pair) {
-      const bool on = MODE == MODE_ASSEMBLY
-          ? (pair ? P.on_asm_r[s] : P.on_asm_s[s]) != 0.f
-          : (pair ? P.on_raw_r[s] : P.on_raw_s[s]) != 0.f;
-      if (!on) continue;  // uniform across the block
-      const int ka = pair ? (s < ref ? s : ref) : s;
-      const int kb = pair ? (s < ref ? ref : s + 1) : s + 1;
-      const float* fa = frames + (size_t)ka * 3 * LH * LW;
-      const float* fb = frames + (size_t)kb * 3 * LH * LW;
-
-      if (MODE != MODE_OCC) {
-        __syncthreads();  // previous pair's readers are done with sx / sy
-        for (int idx = tid; idx < 3 * XH * XW; idx += NT) {
-          const int c = idx / (XH * XW), r = idx % (XH * XW);
-          const int ly = r / XW + 2, lx = r % XW + 2;
-          const float* A = fa + c * LH * LW + ly * LW;
-          const float* Bp = fb + c * LH * LW + ly * LW;
-          sx[idx] = d5(0.5f * (A[lx - 2] + Bp[lx - 2]), 0.5f * (A[lx - 1] + Bp[lx - 1]),
-                       0.5f * (A[lx + 1] + Bp[lx + 1]), 0.5f * (A[lx + 2] + Bp[lx + 2]));
-        }
-        for (int idx = tid; idx < 3 * YH * YW; idx += NT) {
-          const int c = idx / (YH * YW), r = idx % (YH * YW);
-          const int ly = r / YW + 2, lx = r % YW + EXT;
-          const float* A = fa + c * LH * LW + lx;
-          const float* Bp = fb + c * LH * LW + lx;
-          sy[idx] = d5(0.5f * (A[(ly - 2) * LW] + Bp[(ly - 2) * LW]),
-                       0.5f * (A[(ly - 1) * LW] + Bp[(ly - 1) * LW]),
-                       0.5f * (A[(ly + 1) * LW] + Bp[(ly + 1) * LW]),
-                       0.5f * (A[(ly + 2) * LW] + Bp[(ly + 2) * LW]));
-        }
-        __syncthreads();
-      }
-      if (!live) continue;
-
-      float d[3][8];
-      for (int c = 0; c < 3; ++c) {
-        const float* A = fa + c * LH * LW;
-        const float* Bp = fb + c * LH * LW;
-        auto izf = [&](int ry, int rx) {
-          const int l = (ry + EXT) * LW + rx + EXT;
-          return A[l] - Bp[l];
-        };
-        d[c][2] = izf(oy, ox);
-        d[c][6] = d5(izf(oy, ox - 2), izf(oy, ox - 1), izf(oy, ox + 1), izf(oy, ox + 2));
-        d[c][7] = d5(izf(oy - 2, ox), izf(oy - 1, ox), izf(oy + 1, ox), izf(oy + 2, ox));
-        if (MODE != MODE_OCC) {
-          const float* X = sx + c * XH * XW;
-          const float* Y = sy + c * YH * YW;
-          const float* xrow = X + (oy + 2) * XW;
-          d[c][0] = xrow[ox + 2];
-          d[c][1] = Y[(oy + 2) * YW + ox];
-          d[c][3] = d5(xrow[cx[0]], xrow[cx[1]], xrow[cx[3]], xrow[cx[4]]);
-          d[c][4] = d5(X[oy * XW + ox + 2], X[(oy + 1) * XW + ox + 2],
-                       X[(oy + 3) * XW + ox + 2], X[(oy + 4) * XW + ox + 2]);
-          d[c][5] = d5(Y[cy[0] * YW + ox], Y[cy[1] * YW + ox],
-                       Y[cy[3] * YW + ox], Y[cy[4] * YW + ox]);
-        }
-      }
-
-      if (MODE != MODE_ASSEMBLY) {  // occlusion data cost of this pair
-        float iz2 = 0.f, gz2 = 0.f;
-        for (int c = 0; c < 3; ++c) {
-          iz2 += d[c][2] * d[c][2];
-          gz2 += d[c][6] * d[c][6] + d[c][7] * d[c][7];
-        }
-        const float wdc = pair ? P.od_r[s] : P.od_s[s];
-        const float wgc = pair ? P.og_r[s] : P.og_s[s];
-        term = term + wdc * m * sf::pen_apply(P.color, iz2)
-                    + wgc * m * sf::pen_apply(P.grad, gz2);
-      }
-      if (MODE != MODE_OCC) {
-        if (pair) assemble_ref<ZERO_DUV>(P, s, m, d, cwv, duv, dvv, a);
-        else assemble_succ<ZERO_DUV>(P, s, m, d, cwv, duv, dvv, a);
-      }
-    }
-    if (MODE != MODE_ASSEMBLY) {
-      const float contrib = m * P.contrib[s];
-      if (s >= ref) { e0 += term; n0 += contrib; }  // future scores label 0
-      else { e1 += term; n1 += contrib; }
-    }
-  }
-
-  if (!live) return;
-  const size_t o = (size_t)b * HW + (size_t)gy * W + gx;
-  const size_t plane = (size_t)B * HW;
-  int k = 0;
-  if (MODE != MODE_ASSEMBLY) {
-    n0 = n0 == 0.f ? 1.f : n0;
-    n1 = n1 == 0.f ? 1.f : n1;
-    out[o] = DT_SCALE * e0 / n0;
-    out[plane + o] = DT_SCALE * e1 / n1 + P.occ_penalty;
-    k = 2;
-  }
-  if (MODE != MODE_OCC) {
-    const int groups = MODE == MODE_OCC_ASSEMBLY ? 2 : 1;
-    for (int g = 0; g < groups; ++g)
-      for (int q = 0; q < 5; ++q) out[(k + 5 * g + q) * plane + o] = acc[g][q];
-  }
-}
-
-template <int MODE, bool ZERO_DUV>
-cudaError_t launch(const float* seq, const float* wx, const float* wy,
-                   const float* occ, const float* du, const float* dv,
-                   const float* cw, float* out, int B, int H, int W,
-                   const AsmParams& P, cudaStream_t stream) {
-  const int F = 2 * P.ref + 1;
-  const size_t smem = sizeof(float) * (F * 3 * LH * LW + 3 * XH * XW + 3 * YH * YW);
-  auto kern = warp_assemble_kernel<MODE, ZERO_DUV>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B), block(TW, TH);
-  kern<<<grid, block, smem, stream>>>(seq, wx, wy, occ, du, dv, cw, out, B,
-                                      H, W, P);
-  return cudaGetLastError();
+    return m;
+  };
+  assemble_tile<MODE, ZERO_DUV>(P, frames, sx, sy, cw, du, dv, out, b, B, H,
+                                W, x0, y0, mask_of);
 }
 
 }  // namespace
 
 // params: N_PARAMS host floats, laid out by
-// slowflow_tpu_torch/variational/fused_warp.py `_kernel_params`.
+// slowflow_tpu_torch/variational/fused_data.py `kernel_params`.
 // out: [n_out, B, H, W]. Returns a cudaError_t code (0 = launched).
 extern "C" int sf_warp_assemble(const float* seq, const float* wx,
                                 const float* wy, const float* occ,
@@ -399,35 +129,18 @@ extern "C" int sf_warp_assemble(const float* seq, const float* wx,
                                 int W, int mode, int zero_duv,
                                 const float* params, int n_params,
                                 void* stream) {
-  if (n_params != N_PARAMS) return (int)cudaErrorInvalidValue;
   AsmParams P;
-  const float* h = params;
-  P.ref = (int)h[0];
-  P.delta_on = (int)h[1];
-  P.gamma_on = (int)h[2];
-  P.norm = (int)h[3];
-  P.one_direction = (int)h[4];
-  P.color = sf::Pen{(int)h[5], h[6], h[7], h[8]};
-  P.grad = sf::Pen{(int)h[9], h[10], h[11], h[12]};
-  P.data_norm = h[13];
-  P.occ_penalty = h[14];
-  if (P.ref < 1 || 2 * P.ref > MAXN) return (int)cudaErrorInvalidValue;
-  float* arrs[N_ARR] = {P.wd_s, P.wg_s, P.wd_r, P.wg_r, P.on_asm_s,
-                        P.on_asm_r, P.on_raw_s, P.on_raw_r, P.fac, P.od_s,
-                        P.og_s, P.od_r, P.og_r, P.contrib};
-  for (int a = 0; a < N_ARR; ++a)
-    for (int s = 0; s < MAXN; ++s) arrs[a][s] = h[N_HEAD + a * MAXN + s];
-
+  if (!parse_params(params, n_params, P)) return (int)cudaErrorInvalidValue;
+  const size_t smem = tile_smem_bytes(2 * P.ref + 1);
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B), block(TW, TH);
   cudaStream_t st = (cudaStream_t)stream;
-  if (mode == MODE_ASSEMBLY && zero_duv)
-    return (int)launch<MODE_ASSEMBLY, true>(seq, wx, wy, occ, du, dv, cw, out, B, H, W, P, st);
-  if (mode == MODE_ASSEMBLY)
-    return (int)launch<MODE_ASSEMBLY, false>(seq, wx, wy, occ, du, dv, cw, out, B, H, W, P, st);
-  if (mode == MODE_OCC && zero_duv)
-    return (int)launch<MODE_OCC, true>(seq, wx, wy, occ, du, dv, cw, out, B, H, W, P, st);
-  if (mode == MODE_OCC)
-    return (int)launch<MODE_OCC, false>(seq, wx, wy, occ, du, dv, cw, out, B, H, W, P, st);
-  if (mode == MODE_OCC_ASSEMBLY && zero_duv)
-    return (int)launch<MODE_OCC_ASSEMBLY, true>(seq, wx, wy, occ, du, dv, cw, out, B, H, W, P, st);
-  return (int)cudaErrorInvalidValue;  // occ_assembly needs zero_duv
+  return (int)dispatch_mode(mode, zero_duv, [&](auto m, auto z) {
+    auto kern = warp_assemble_kernel<decltype(m)::value, decltype(z)::value>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, block, smem, st>>>(seq, wx, wy, occ, du, dv, cw, out, B, H,
+                                    W, P);
+    return cudaGetLastError();
+  });
 }

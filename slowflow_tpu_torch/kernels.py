@@ -1,10 +1,12 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled at first use with nvcc into one shared library with
-a plain C interface, loaded with ctypes. The library lands in `_build/` inside
-the package (ignored by git), keyed by a hash of the sources and flags, so an
-edited kernel is rebuilt and an unchanged one is reused. Nothing here runs at
-import time. A failed build or a failed launch raises.
+The sources are compiled at first use with nvcc, one process per `.cu` file,
+all started together, and linked into one shared library with a plain C
+interface, loaded with ctypes. The library lands in `_build/` inside the
+package (ignored by git), keyed by a hash of the sources and flags, so an
+edited kernel is rebuilt and an unchanged one is reused; ptxas's register
+and spill report of the build is kept beside it (`ptxas.log`). Nothing here
+runs at import time. A failed build or a failed launch raises.
 
 Every entry point takes raw device pointers and the current CUDA stream as
 `c_void_p` and returns `cudaGetLastError()` of its launches.
@@ -25,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -41,11 +43,21 @@ _SIGNATURES = {
     # partials, sums, B, H, W, method, reg_fct, reg_eps_sq, reg_trunc,
     # reg_trunc_val, alpha, iterations, omega, stream
     "sf_solve_step": [_P] * 15 + [_I] * 5 + [_F] * 4 + [_I, _F, _P],
+    # warped, mask, du, dv, cw, out, B, H, W, mode, zero_duv,
+    # params (host), n_params, stream
+    "sf_fused_data": [_P] * 6 + [_I] * 5 + [_P, _I, _P],
+    # src, wx, wy, out, masks, B, F, C, H, W, factors (host), identity, stream
+    "sf_warp_stack": [_P] * 5 + [_I] * 5 + [_P, _I, _P],
+    # du, dv, a11, a12, a22, b1, b2, wh, wv, ndu, ndv, scratch, B, H, W,
+    # iterations, omega, stream
+    "sf_sor_coupled_rb": [_P] * 12 + [_I] * 4 + [_F, _P],
 }
 
 # launches of each kernel wrapper; read and reset by callers that must show
-# a path went through the kernels
-LAUNCHES = {"warp_assemble": 0, "solve_step": 0}
+# a path went through the kernels. warp_stack and warp_stack_pallas are the
+# K4 and K6 entries of one kernel.
+LAUNCHES = {"warp_assemble": 0, "solve_step": 0, "fused_data": 0,
+            "warp_stack": 0, "warp_stack_pallas": 0, "sor": 0}
 
 
 def reset_launch_counts() -> None:
@@ -82,20 +94,32 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    with tempfile.NamedTemporaryFile(dir=out.parent, suffix=".so",
-                                     delete=False) as tmp:
-        tmp_path = tmp.name
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp_path, *cu],
-                              capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        cu = sorted(CSRC.glob("*.cu"))
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                                   "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(cu, objs)]
+        reports, failed = [], []
+        for src, proc in zip(cu, procs):
+            stdout, stderr = proc.communicate()
+            reports.append(f"== {src.name}\n{stdout}{stderr}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name} (rc {proc.returncode}):\n"
+                              f"{stdout}\n{stderr}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = Path(tmp) / out.name
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+                               *objs], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed (rc {proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp_path, out)
-    finally:
-        if os.path.exists(tmp_path):
-            os.unlink(tmp_path)
+        (out.parent / "ptxas.log").write_text("".join(reports))
+        os.replace(lib, out)
     return out
 
 

@@ -9,23 +9,11 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from .. import kernels
-from .terms import (add_data_terms, data_norm, derivative_stacks, gate_masks,
-                    occlusion_data_costs, ref_factors, succ_mask, succ_weights,
-                    warp_window_frames)
-
-MODES = {"assembly": (0, 5), "occ": (1, 2), "occ_assembly": (2, 12)}
-MAXN = 8           # offsets the kernel supports (S <= 5)
-
-
-def _check_mode(p, mode: str, zero_duv: bool) -> None:
-    if mode not in MODES:
-        raise ValueError(f"unknown mode {mode!r}; expected one of {list(MODES)}")
-    if mode == "occ_assembly" and not (zero_duv and not p.one_direction):
-        raise ValueError("occ_assembly needs zero_duv and a symmetric window")
+from .fused_data import MODES, check_mode, fused_data_system_ref, kernel_params
+from .terms import gate_masks, succ_mask, warp_window_frames
 
 
 def warp_assemble(seq, wx, wy, occ, du, dv, cw, p, *, mode: str = "assembly",
@@ -52,68 +40,19 @@ def warp_assemble(seq, wx, wy, occ, du, dv, cw, p, *, mode: str = "assembly",
 
 def warp_assemble_ref(seq, wx, wy, occ, du, dv, cw, p, *,
                       mode: str = "assembly", zero_duv: bool = False):
-    """Plain PyTorch twin of the K2 kernel (any device): exact warp, the
-    derivative stacks and the reference assembly / occlusion costs."""
-    _check_mode(p, mode, zero_duv)
-    ref = p.ref
-    warped, masks = warp_window_frames(seq, wx, wy, ref)
-    mask = succ_mask(masks, ref)
-    succ, to_ref = derivative_stacks(warped, ref)
-    if zero_duv or du is None:
-        du = dv = torch.zeros_like(wx)
-    if mode == "occ":
-        return occlusion_data_costs(mask, succ, to_ref, p)
+    """Plain PyTorch twin of the K2 kernel (any device): exact warp, then
+    K3's twin on the warped window (gated mask in `assembly` mode)."""
+    check_mode(p, mode, zero_duv)
+    warped, masks = warp_window_frames(seq, wx, wy, p.ref)
+    mask = succ_mask(masks, p.ref)
     if mode == "assembly":
-        return add_data_terms(du, dv, gate_masks(mask, occ, p), succ, to_ref,
-                              cw, p)
-    e0, e1 = occlusion_data_costs(mask, succ, to_ref, p)
-    past = (torch.arange(2 * ref, device=seq.device) < ref).view(-1, 1, 1)
-    sys_b = add_data_terms(du, dv, mask * past, succ, to_ref, cw, p)
-    sys_f = add_data_terms(du, dv, mask * ~past, succ, to_ref, cw, p)
-    return (e0, e1, *sys_b, *sys_f)
-
-
-def _kernel_params(p) -> np.ndarray:
-    """Host parameter block of csrc/warp_assemble.cu (`sf_warp_assemble`):
-    15 scalars, then 14 per-offset arrays of MAXN floats. Products of weights
-    are rounded to float32 as the twin's tensor ops round them."""
-    f32 = np.float32
-    n = 2 * p.ref
-    if n > MAXN:
-        raise ValueError(f"the K2 kernel supports S <= {MAXN // 2 + 1}, "
-                         f"got S = {p.S}")
-    color, grad, _ = p.penalties()
-    hd, hg = f32(p.delta / 3.0), f32(p.gamma / 3.0)
-    rho_w, om_w = succ_weights(p)
-    idx = [max(p.ref - s - 1, s - p.ref) for s in range(n)]
-    rho_raw = [p.rho[i] for i in idx]
-    om_raw = [p.omega[i] for i in idx]
-    head = [p.ref, p.delta != 0.0, p.gamma != 0.0, p.dataterm_norm,
-            p.one_direction, *color.kernel_args(), *grad.kernel_args(),
-            data_norm(p), p.occlusion_penalty]
-
-    def arr(vals):
-        out = np.zeros(MAXN, f32)
-        out[:n] = vals
-        return out
-
-    arrays = [
-        arr([f32(r) * hd for r in rho_w]), arr([f32(r) * hg for r in rho_w]),
-        arr([f32(o) * hd for o in om_w]), arr([f32(o) * hg for o in om_w]),
-        arr([r != 0.0 for r in rho_w]), arr([o != 0.0 for o in om_w]),
-        arr([r != 0.0 for r in rho_raw]), arr([o != 0.0 for o in om_raw]),
-        arr(ref_factors(p)),
-        arr([f32(r) * hd for r in rho_raw]), arr([f32(r) * hg for r in rho_raw]),
-        arr([f32(o) * hd for o in om_raw]), arr([f32(o) * hg for o in om_raw]),
-        arr([f32(2.0) * f32(r) + f32(2.0) * f32(o)
-             for r, o in zip(rho_raw, om_raw)]),
-    ]
-    return np.ascontiguousarray(
-        np.concatenate([np.asarray(head, f32), *arrays]), f32)
+        mask = gate_masks(mask, occ, p)
+    return fused_data_system_ref(warped, mask, du, dv, cw, p, mode=mode,
+                                 zero_duv=zero_duv)
 
 
 def _warp_assemble_cuda(seq, wx, wy, occ, du, dv, cw, p, mode, zero_duv):
-    _check_mode(p, mode, zero_duv)
+    check_mode(p, mode, zero_duv)
     dev = seq.device
     b, f, c, h, w = seq.shape
     if f != 2 * p.ref + 1 or c != 3:
@@ -130,7 +69,7 @@ def _warp_assemble_cuda(seq, wx, wy, occ, du, dv, cw, p, mode, zero_duv):
         kernels.require_f32_cuda("du", du, plane, dev)
         kernels.require_f32_cuda("dv", dv, plane, dev)
     mode_id, n_out = MODES[mode]
-    params = _kernel_params(p)
+    params = kernel_params(p)
     out = torch.empty((n_out, b, h, w), dtype=torch.float32, device=dev)
     lib = kernels.load()
     err = lib.sf_warp_assemble(

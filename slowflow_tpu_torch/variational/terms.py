@@ -3,9 +3,11 @@ functions of `slowflow_tpu.variational.multiframe`).
 
 Every function takes optional leading batch dims: planes are [..., H, W],
 window stacks [..., F, 3, H, W], per-offset stacks [..., N, 3, H, W] with
-N = 2*ref offsets. These are the building blocks of the two kernels' plain
-twins (fused_warp.warp_assemble_ref, fused_solve.solve_step_ref) and of the
-occlusion step, which stays plain tensor code on every device.
+N = 2*ref offsets. These are the building blocks of the kernels' plain
+twins (fused_warp.warp_assemble_ref, fused_data.fused_data_system_ref,
+fused_solve.solve_step_ref), of the unfused route's derivative stacks and
+assembly and of the occlusion step, which stay plain tensor code on every
+device.
 """
 from __future__ import annotations
 
@@ -166,10 +168,12 @@ def derivative_stacks(warped, ref: int):
     return succ, to_ref
 
 
-def get_derivatives_mt(seq, wx, wy, ref: int):
-    """Warp the window and build the derivative stacks.
+def get_derivatives_mt(seq, wx, wy, ref: int, warp=warp_window_frames):
+    """Warp the window with `warp(seq, wx, wy, ref)` -> (warped, masks)
+    (warp_window_frames' contract; the unfused route passes the K4 or K6
+    wrapper) and build the derivative stacks.
     Returns (succ, to_ref, mask [..., N, H, W])."""
-    warped, masks = warp_window_frames(seq, wx, wy, ref)
+    warped, masks = warp(seq, wx, wy, ref)
     succ, to_ref = derivative_stacks(warped, ref)
     return succ, to_ref, succ_mask(masks, ref)
 

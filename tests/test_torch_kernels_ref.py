@@ -212,25 +212,50 @@ def test_dpsis_and_smoothness_terms():
 
 
 def test_params_carry_over_and_route_keys_ignored(tmp_path):
+    """The numeric keys and the route keys parse as in the JAX package and
+    carry over through from_jax_params; the route keys are honoured (they
+    pick the port's route), and only the layout / batching keys of
+    TPU_ROUTE_KEYS are ignored."""
     from slowflow_tpu.config import ParameterList
+    from slowflow_tpu_torch.variational.params import TPU_ROUTE_KEYS, Route
 
-    cfg = tmp_path / "p.cfg"
-    cfg.write_text("slow_flow_S\t3\nslow_flow_alpha\t4.0\nslow_flow_gamma\t6\n"
-                   "slow_flow_delta\t1\nslow_flow_layers\t5\n"
-                   "slow_flow_p_scale\t0.9\nslow_flow_niter_outer\t10\n"
-                   "slow_flow_thres_outer\t1e-5\nslow_flow_niter_inner\t1\n"
-                   "slow_flow_thres_inner\t1e-5\nslow_flow_niter_solver\t30\n"
-                   "slow_flow_sor_omega\t1.9\nslow_flow_robust_color\t1\n"
-                   "slow_flow_robust_color_eps\t0.001\nslow_flow_robust_reg\t1\n"
-                   "slow_flow_robust_reg_eps\t0.001\nslow_flow_omega_0\t0\n"
-                   "slow_flow_omega_1\t2\nslow_flow_merge_warp\t1\n"
-                   "slow_flow_fused_solve\t1\nslow_flow_warp_mode\tshift\n")
-    params = ParameterList()
-    params.read(str(cfg))
-    mine = MultiFrameParams.from_parameter_list(params)
-    theirs = jmf.MultiFrameParams.from_parameter_list(params)
-    assert mine == from_jax_params(theirs)
+    def parsed(extra):
+        cfg = tmp_path / "p.cfg"
+        cfg.write_text(
+            "slow_flow_S\t3\nslow_flow_alpha\t4.0\nslow_flow_gamma\t6\n"
+            "slow_flow_delta\t1\nslow_flow_layers\t5\n"
+            "slow_flow_p_scale\t0.9\nslow_flow_niter_outer\t10\n"
+            "slow_flow_thres_outer\t1e-5\nslow_flow_niter_inner\t1\n"
+            "slow_flow_thres_inner\t1e-5\nslow_flow_niter_solver\t30\n"
+            "slow_flow_sor_omega\t1.9\nslow_flow_robust_color\t1\n"
+            "slow_flow_robust_color_eps\t0.001\nslow_flow_robust_reg\t1\n"
+            "slow_flow_robust_reg_eps\t0.001\nslow_flow_omega_0\t0\n"
+            "slow_flow_omega_1\t2\nslow_flow_occlusion_reasoning\t1\n"
+            + extra)
+        params = ParameterList()
+        params.read(str(cfg))
+        mine = MultiFrameParams.from_parameter_list(params)
+        theirs = jmf.MultiFrameParams.from_parameter_list(params)
+        assert mine == from_jax_params(theirs)
+        return mine
+
+    mine = parsed("slow_flow_merge_warp\t1\nslow_flow_fused_solve\t1\n"
+                  "slow_flow_warp_mode\tshift\n")
     assert mine.omega == (0.0, 2.0) and mine.ref == 2
+    assert mine.route() == Route("merged", True, "fused")
+    assert parsed("").route() == Route("merged", True, "fused")
+    assert parsed("slow_flow_merge_warp\t0\nslow_flow_fused_solve\t0\n"
+                  ).route() == Route("stack", False, "composed")
+    assert parsed("slow_flow_fused_data\t0\n").route() == \
+        Route("unfused", False, "fused")
+    assert parsed("slow_flow_warp_mode\tbanded\n").route().assembly == \
+        "stack"
+    assert parsed("slow_flow_fuse_occ\t0\n").route() == \
+        Route("merged", False, "fused")
+    assert parsed("slow_flow_self_mask\t0\n").route() == \
+        Route("merged", False, "fused")
+    ignored = parsed("".join(f"{k}\t1\n" for k in TPU_ROUTE_KEYS))
+    assert ignored == parsed("")
 
 
 # ---------------------------------------------------------------- on the card

@@ -2,9 +2,11 @@
 
 `variational_mt_batched` of slowflow_tpu_torch (CPU tensors, so the kernels'
 plain twins) and of slowflow_tpu (XLA route: banded warp mode, unfused
-assembly) get the same numpy inputs. The port runs the fused-occlusion
-control flow; the JAX XLA route assembles the first outer iteration from
-gated masks instead. Both are the same sums in real arithmetic.
+assembly, composed solve) get the same numpy inputs. The port runs each of
+its routes (ROUTES): the merged route with the fused-occlusion control flow,
+where the JAX XLA route assembles the first outer iteration from gated
+masks instead (the same sums in real arithmetic), the stack route with the
+composed solve, and the unfused route with the pallas_warp window warp.
 
 At these tiny sizes the production energy (Charbonnier penalties with
 eps = 0.001, 10 SOR sweeps) amplifies float32 rounding: a 1e-7 relative
@@ -13,6 +15,8 @@ a few pixels after 2 alternations x 3 outer iterations. Short runs are held
 to the JAX flow at 1e-4 px; the full slice is held to the spread JAX shows
 against itself under that perturbation (ROADMAP Queue 3).
 """
+import contextlib
+import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -59,13 +63,29 @@ def _scene(b, s, h, w, seed=0):
     return seq
 
 
-def _run_both(jp, b, h, w, seed=0):
+# the port's routes, as overrides of the JAX XLA-route parameters
+ROUTES = {
+    "merged": dict(fused_data=True, warp_mode="shift"),
+    "stack": dict(fused_data=True, merge_warp=False, fused_solve=False),
+    "unfused": dict(pallas_warp=True, fused_solve=False),
+}
+ROUTE_OF = {"merged": ("merged", "fused"), "stack": ("stack", "composed"),
+            "unfused": ("unfused", "composed")}
+
+
+def _port_params(jp, route):
+    p = dataclasses.replace(from_jax_params(jp), **ROUTES[route])
+    assert (p.route().assembly, p.route().solve) == ROUTE_OF[route]
+    return p
+
+
+def _run_both(jp, b, h, w, seed=0, route="merged"):
     seq = _scene(b, jp.S, h, w, seed)
     z = np.zeros((b, h, w), np.float32)
     jwx, jwy, jocc = (np.asarray(o) for o in
                       jmf.variational_mt_batched(z, z, seq, jp))
     twx, twy, tocc = (o.numpy() for o in tmf.variational_mt_batched(
-        z, z, seq, from_jax_params(jp), device="cpu"))
+        z, z, seq, _port_params(jp, route), device="cpu"))
     return (jwx, jwy, jocc), (twx, twy, tocc)
 
 
@@ -83,8 +103,19 @@ def _quantiles(d):
 
 def test_slice_matches_jax():
     """B=2, S=3, 36x40, 2 levels, 2 alternations x 3 outer x 10 SOR sweeps,
-    occlusion reasoning on. Bound: the port is as close to JAX as JAX is to
-    itself under a 1e-7 relative input perturbation (x3, plus 1e-4 px)."""
+    occlusion reasoning on, the port on its merged route. Bound: the port is
+    as close to JAX as JAX is to itself under a 1e-7 relative input
+    perturbation (x3, plus 1e-4 px)."""
+    _check_slice("merged")
+
+
+@pytest.mark.parametrize("route", ["stack", "unfused"])
+def test_slice_matches_jax_on_route(route):
+    """test_slice_matches_jax on the port's other routes, same bounds."""
+    _check_slice(route)
+
+
+def _check_slice(route):
     seq = _scene(2, 3, 36, 40)
     z = np.zeros((2, 36, 40), np.float32)
     rng = np.random.default_rng(99)
@@ -95,7 +126,7 @@ def test_slice_matches_jax():
     nwx, nwy, nocc = (np.asarray(o) for o in
                       jmf.variational_mt_batched(z, z, noisy, SLICE))
     twx, twy, tocc = (o.numpy() for o in tmf.variational_mt_batched(
-        z, z, seq, from_jax_params(SLICE), device="cpu"))
+        z, z, seq, _port_params(SLICE, route), device="cpu"))
     assert np.isfinite(twx).all() and np.isfinite(twy).all()
     assert set(np.unique(tocc)) <= {-1.0, 1.0}
     (q50, q90), mean = _quantiles(np.hypot(twx - jwx, twy - jwy))
@@ -105,18 +136,27 @@ def test_slice_matches_jax():
     assert (tocc != jocc).mean() <= 3 * (nocc != jocc).mean() + 0.005
 
 
-@pytest.mark.parametrize("change", [
+SHORT_RUNS = [
     {"layers": 2, "niter_alter": 1, "niter_outer": 1},
     {"niter_alter": 1, "niter_outer": 1, "niter_inner": 2, "smoothing": 0},
     {"niter_alter": 2, "niter_outer": 1, "occlusion_reasoning": False,
      "smoothing": 2},
     {"niter_alter": 2, "niter_outer": 1, "one_direction": True},
-])
-def test_short_runs_match_jax(change):
-    """Short runs stay in the well-conditioned regime: 1e-4 px."""
+]
+
+
+@pytest.mark.parametrize("route,change", [
+    pytest.param(route, change,
+                 id=(f"change{i}" if route == "merged"
+                     else f"{route}-change{i}"))
+    for route in ROUTES for i, change in enumerate(SHORT_RUNS)])
+def test_short_runs_match_jax(route, change):
+    """Short runs stay in the well-conditioned regime: 1e-4 px, on every
+    port route."""
     jp = jmf.MultiFrameParams(**{**SLICE.__dict__, "layers": 1, **change})
     h, w = (36, 40) if jp.layers == 2 else (24, 32)
-    (jwx, jwy, jocc), (twx, twy, tocc) = _run_both(jp, 2, h, w, seed=1)
+    (jwx, jwy, jocc), (twx, twy, tocc) = _run_both(jp, 2, h, w, seed=1,
+                                                   route=route)
     assert np.abs(twx - jwx).max() <= 1e-4
     assert np.abs(twy - jwy).max() <= 1e-4
     np.testing.assert_array_equal(tocc, jocc)
@@ -191,7 +231,7 @@ def _write_translating_sequence(seq_dir, u, v, h=48, w=64, n=8):
         write_image(seq_dir / f"frame_{f:03d}.png", img)
 
 
-def _cfg(tmp_path, seq_dir, deep_matching=0):
+def _cfg(tmp_path, seq_dir, deep_matching=0, extra=""):
     cfg = tmp_path / "slow_flow.cfg"
     cfg.write_text(textwrap.dedent(f"""\
     file\t{seq_dir}/frame_%03i.png
@@ -213,7 +253,7 @@ def _cfg(tmp_path, seq_dir, deep_matching=0):
     slow_flow_niter_alter\t2
     slow_flow_niter_outer\t4
     slow_flow_niter_solver\t20
-    """))
+    """) + extra)
     return cfg
 
 
@@ -239,6 +279,36 @@ def test_cli_stage2_on_cpu(tmp_path):
     # -resume finds every output and solves nothing
     rc = main([str(_cfg(tmp_path, seq_dir)), "-resume", "-device", "cpu"])
     assert rc == 0
+
+
+def test_cli_route_keys_reach_the_route(tmp_path):
+    """A cfg with the JAX package's route keys runs the stack route and the
+    composed solve through the CLI: K3's and K5's wrappers are called, K1's
+    and K2's are not."""
+    from unittest import mock
+
+    from slowflow_tpu.io import read_flo
+    from slowflow_tpu_torch.cli.slow_flow import main
+
+    seq_dir = tmp_path / "seq"
+    _write_translating_sequence(seq_dir, 1.0, 0.5, h=32, w=40, n=6)
+    cfg = _cfg(tmp_path, seq_dir, extra="slow_flow_merge_warp\t0\n"
+               "slow_flow_fused_solve\t0\nslow_flow_pallas_sor\t1\n")
+    spies = {name: mock.patch.object(tmf, name, wraps=getattr(tmf, name))
+             for name in ("fused_data_system", "sor_coupled_rb_pallas",
+                          "warp_stack", "warp_assemble", "solve_step")}
+    called = {}
+    with contextlib.ExitStack() as stack:
+        for name, patch in spies.items():
+            called[name] = stack.enter_context(patch)
+        assert main([str(cfg), "-batch", "2", "-device", "cpu"]) == 0
+    assert called["fused_data_system"].called
+    assert called["sor_coupled_rb_pallas"].called
+    assert called["warp_stack"].called
+    assert not called["warp_assemble"].called
+    assert not called["solve_step"].called
+    flow = read_flo(tmp_path / "sf_out" / "frame_002.flo")[8:-8, 8:-8]
+    assert np.hypot(flow[..., 0] - 1.0, flow[..., 1] - 0.5).mean() < 0.1
 
 
 def test_cli_deep_matching_not_ported(tmp_path):
