@@ -13,9 +13,15 @@ Phases (any failure makes the script exit non-zero without the final line):
      smoothing methods 0/1/2 from zero and from a given increment, K4
      warp_stack at the bench flow and at ~20 px, K5 sor (30 sweeps from a
      nonzero increment), K6's entry warp_stack_pallas (factors -2..2), and
-     K3 on K4's stack against K2; relative error and time;
-  3. the slice: variational_mt_batched at the bench configuration (bench.py
-     scene, 5 levels, 10 alternations x 10 outer x 30 SOR sweeps, occlusion
+     K3 on K4's stack against K2; K1 and K5 also on their streaming path
+     (B=16 at 270x480) and at odd shapes, K2 at an odd shape; relative
+     error, time (CUDA events), the least time the card could take for the
+     same work (bound), the time of grid_sample on K4's and K6's planes, and
+     each wrapper's CUDA launches and device time in one call under
+     torch.profiler; K1 / K5's band plans and K2 / K3's registers, spills
+     and resident blocks per SM;
+  3. the slice: variational_mt_batched at the bench configuration (bench
+     scene of slowflow_tpu_torch/bench_scene.py, 5 levels, 10 alternations x 10 outer x 30 SOR sweeps, occlusion
      reasoning, batch 4) on the merged route and on the stack route with the
      composed solve, each once through the kernels and once through the
      twins, both on the card: wall times, launch counts per route, flow
@@ -31,6 +37,12 @@ Phases (any failure makes the script exit non-zero without the final line):
 Prints a JSON line with one entry per kernel, then
 {"ok": true, "device": {...}} as the last line. A detailed record goes to
 chiprun_out/chip_smoke.json.
+
+Bounds: the larger of the bytes the function must move (each input read
+once, each output written once) over 3.35 TB/s and its float32 operations
+over 67 TFLOP/s (an H100 SXM's HBM and non-tensor fp32 peaks). Operation
+counts per cell are counted from the kernels' sources (an FMA is 2); see
+`_work_*`.
 """
 from __future__ import annotations
 
@@ -49,6 +61,8 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 OUT_DIR = HERE / "chiprun_out"      # gitignored; the detailed record lands here
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM peaks (NVIDIA data sheet)
+FP32_FLOPS = 67e12
 FAILURES: list[str] = []
 RECORD: dict = {}
 
@@ -105,16 +119,6 @@ def twins():
             "sor_coupled_rb_pallas": solver.sor_coupled_rb}
 
 
-def read_flo(path) -> np.ndarray:
-    """Middlebury .flo -> [H, W, 2] float32."""
-    with open(path, "rb") as fh:
-        magic = np.fromfile(fh, np.float32, 1)[0]
-        if magic != 202021.25:
-            raise ValueError(f"{path}: not a .flo file")
-        w, h = (int(x) for x in np.fromfile(fh, np.int32, 2))
-        return np.fromfile(fh, np.float32, 2 * w * h).reshape(h, w, 2)
-
-
 def check(cond: bool, what: str) -> None:
     print(("PASS " if cond else "FAIL ") + what, flush=True)
     if not cond:
@@ -152,6 +156,124 @@ def cuda_ms(fn, reps: int = 5) -> float:
 def rel_err(got, want) -> tuple[float, float]:
     d = (got - want).abs().max().item()
     return d / max(want.abs().max().item(), 1e-30), d
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take for this work, and which term
+    sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+# float32 operations per cell, counted from csrc/ (an FMA is 2): K1's
+# prologue by smoothing method (weights, 2 RHS adjustments, 2x2 inverse),
+# one red-black sweep (each cell updated once), the change sums.
+K1_PROLOGUE_OPS = {0: 70, 1: 105, 2: 65}
+K1_SWEEP_OPS, K1_SUMS_OPS, K5_PROLOGUE_OPS = 32, 6, 15
+# assembly kernels, per pixel: the bilinear warp of one frame (coordinates,
+# weights, 3 channels), one on pair's derivatives (Ix, Iy, Iz, Ixx, Ixy,
+# Iyy, Ixz, Iyz over 3 channels, the mask), its IRLS assembly (delta +
+# gamma terms; the to-reference pair carries the factor products; zero_duv
+# drops the linearization) and its occlusion cost.
+WARP_OPS, DERIV_OPS, OCC_OPS = 40, 222, 30
+ASM_OPS = {"succ": 270, "ref": 350}
+ZERO_DUV_SAVES = 36
+
+
+def _work_solve(b, h, w, method, zero_init, iterations, sums=True):
+    n = b * h * w
+    nbytes = 4 * n * (8 + (0 if zero_init else 2) + 2) + (8 * b if sums else 0)
+    flops = n * (K1_PROLOGUE_OPS[method] + K1_SWEEP_OPS * iterations
+                 + (K1_SUMS_OPS if sums else 0))
+    return bound(nbytes, flops)
+
+
+def _work_sor(b, h, w, iterations):
+    n = b * h * w
+    return bound(4 * n * 11, n * (K5_PROLOGUE_OPS + K1_SWEEP_OPS * iterations))
+
+
+def _work_assembly(p, b, h, w, mode, zero_duv, warp):
+    """K2 (warp=True: reads the window and the flow) or K3 (reads the warped
+    window and the mask)."""
+    from slowflow_tpu_torch.variational.fused_data import MODES, kernel_params
+
+    f, n, hw = 2 * p.ref + 1, 2 * p.ref, h * w
+    n_out = MODES[mode][1]
+    planes = 3 * f + 3 + (0 if zero_duv else 2) + n_out
+    planes += (2 + (mode == "assembly")) if warp else n
+    prm = kernel_params(p)
+    on_s, on_r = (prm[15 + 8 * a:15 + 8 * a + n]
+                  for a in ((4, 5) if mode == "assembly" else (6, 7)))
+    per_pair = {"succ": DERIV_OPS, "ref": DERIV_OPS}
+    for kind in per_pair:
+        if mode != "occ":
+            per_pair[kind] += ASM_OPS[kind] - (ZERO_DUV_SAVES if zero_duv else 0)
+        if mode != "assembly":
+            per_pair[kind] += OCC_OPS
+    ops = (int((on_s != 0).sum()) * per_pair["succ"]
+           + int((on_r != 0).sum()) * per_pair["ref"]
+           + ((f - 1) * WARP_OPS if warp else 0))
+    return bound(4 * b * hw * planes, b * hw * ops)
+
+
+def _work_warp(b, f, h, w, warped_frames):
+    hw = h * w
+    return bound(4 * b * hw * (3 * f + 2 + 3 * f + f),
+                 b * hw * warped_frames * WARP_OPS)
+
+
+def _grid_sample_ms(seq, wx, wy, factors):
+    """One torch.nn.functional.grid_sample call on the same planes (bilinear,
+    border padding, align_corners): a yardstick that clamps the coordinate
+    rather than each corner and computes no mask."""
+    import torch
+    import torch.nn.functional as F
+
+    b, f, c, h, w = seq.shape
+    fac = torch.tensor(factors, dtype=torch.float32,
+                       device=seq.device).view(1, f, 1, 1)
+    xs = torch.arange(w, device=seq.device).view(1, 1, 1, w) + fac * wx[:, None]
+    ys = torch.arange(h, device=seq.device).view(1, 1, h, 1) + fac * wy[:, None]
+    grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1],
+                       -1).view(b * f, h, w, 2)
+    inp = seq.reshape(b * f, c, h, w)
+    return cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                         padding_mode="border",
+                                         align_corners=True))
+
+
+def _kernel_events(prof):
+    """The CUDA kernels a torch.profiler run saw (no memcpy / memset)."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in prof.events()
+            if getattr(ev, "device_type", None) == DeviceType.CUDA
+            and not ev.name.startswith(("Memcpy", "Memset"))]
+
+
+def _one_call_profile(fn, attempts: int = 3) -> dict:
+    """CUDA kernel launches and device time of one call of `fn`. The
+    profiler now and then delivers no kernel record for a call that ran (its
+    result was checked); such a capture is taken again, at most `attempts`
+    times in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = _kernel_events(prof)
+        if evs:
+            break
+    return dict(launches_per_call=len(evs), profile_attempts=attempt,
+                device_ms=sum(ev.time_range.elapsed_us() for ev in evs) / 1e3,
+                kernel_names=sorted({ev.name[:80] for ev in evs}))
 
 
 # ---------------------------------------------------------------- phase 1
@@ -199,9 +321,11 @@ def _k1_inputs(b, h, w, seed, device):
             for a in (uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv)]
 
 
-def _compare(name, entry_key, kern, twin, what):
+def _compare(name, entry_key, kern, twin, what, work=None, library_ms=None):
     """Run kernel and twin once on the same inputs, record the worst
-    per-plane relative / absolute error and both times."""
+    per-plane relative / absolute error, both times, the bound of `work`,
+    the library call's time, and the kernel's launches and device time in
+    one call."""
     import torch
 
     got, want = kern(), twin()
@@ -209,49 +333,104 @@ def _compare(name, entry_key, kern, twin, what):
     errs = [rel_err(g, t) for g, t in zip(got, want)]
     worst = max(e[0] for e in errs)
     entry = dict(entry_key, rel_err=worst, abs_err=max(e[1] for e in errs),
-                 ms=cuda_ms(kern), plain_ms=cuda_ms(twin, 2))
+                 ms=cuda_ms(kern), plain_ms=cuda_ms(twin, 2),
+                 library_ms=library_ms, **(work or {}),
+                 **_one_call_profile(kern))
     RECORD.setdefault("kernels_vs_twins", {}).setdefault(name, []).append(
         entry)
+    extra = f", bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})" \
+        if work else ""
     check(worst <= REL_TOL,
           f"{what}: rel err {worst:.2e} (per plane: "
           + " ".join(f"{e[0]:.1e}" for e in errs)
-          + f"); {entry['ms']:.3f} ms vs twin {entry['plain_ms']:.3f} ms")
+          + f"); {entry['ms']:.3f} ms vs twin {entry['plain_ms']:.3f} ms"
+          + extra + f"; {entry['launches_per_call']} launches, device "
+          f"{entry['device_ms']:.4f} ms")
+
+
+VARIANTS = (("assembly", False), ("assembly", True), ("occ", False),
+            ("occ", True), ("occ_assembly", True))
 
 
 def kernels_vs_twins():
-    """K2 and K1 against their twins."""
+    """K2 and K1 against their twins (K2 also at an odd shape, K1 also on
+    its streaming path and at odd shapes); K1 / K5's band plans and K2 /
+    K3's registers and resident blocks."""
+    import ctypes
+
     import torch
 
+    from slowflow_tpu_torch import kernels
     from slowflow_tpu_torch.variational import fused_solve, fused_warp
 
     dev = torch.device("cuda")
     p = bench_params()
     _, _, reg = p.penalties()
-    for (h, w) in ((270, 480), (176, 314)):
-        args = _k2_inputs(4, h, w, 0, dev)
-        for mode, zero_duv in (("assembly", False), ("assembly", True),
-                               ("occ", False), ("occ", True),
-                               ("occ_assembly", True)):
+    lib = kernels.load()
+    res = (ctypes.c_int * 3)()
+    for fn, name in (("sf_warp_assemble_occupancy", "K2"),
+                     ("sf_fused_data_occupancy", "K3")):
+        for mode, zero_duv in VARIANTS:
+            kernels.check(getattr(lib, fn)(
+                ("assembly", "occ", "occ_assembly").index(mode),
+                int(zero_duv), p.ref, res), fn)
+            RECORD.setdefault("resources", {})[
+                f"{name} {mode} zero_duv={zero_duv}"] = list(res)
+            print(f"{name} {mode:12s} zero_duv={zero_duv!s:5}: {res[0]} "
+                  f"blocks/SM, {res[1]} registers, {res[2]} B spilled")
+    for shape in ((4, 270, 480), (4, 176, 314), (16, 270, 480)):
+        for k5 in (False, True):
+            plan = fused_solve.solve_plan(*shape, k5=k5)
+            RECORD.setdefault("solve_plans", {})[
+                f"{'K5' if k5 else 'K1'} {shape}"] = plan._asdict()
+            print(f"{'K5' if k5 else 'K1'} plan at {shape}: {plan}")
+
+    for (b, h, w) in ((4, 270, 480), (4, 176, 314), (3, 131, 237)):
+        args = _k2_inputs(b, h, w, 0, dev)
+        for mode, zero_duv in VARIANTS:
             kw = dict(mode=mode, zero_duv=zero_duv)
-            _compare("warp_assemble", dict(shape=[4, h, w], **kw),
+            _compare("warp_assemble", dict(shape=[b, h, w], **kw),
                      lambda: fused_warp.warp_assemble(*args, p, **kw),
                      lambda: fused_warp.warp_assemble_ref(*args, p, **kw),
-                     f"K2 {mode:12s} zero_duv={zero_duv!s:5} {h}x{w}")
+                     f"K2 {mode:12s} zero_duv={zero_duv!s:5} {b}x{h}x{w}",
+                     work=_work_assembly(p, b, h, w, mode, zero_duv, True))
 
-        t = _k1_inputs(4, h, w, 1, dev)
-        for method in (0, 1, 2):
-            for zero_init in (True, False):
-                du, dv = (None, None) if zero_init else (t[8], t[9])
-                kw = dict(alpha=p.alpha, reg_pen=reg, method=method,
-                          iterations=p.niter_solver, omega=p.sor_omega,
-                          with_change=True)
-                _compare("solve_step", dict(shape=[4, h, w], method=method,
-                                            zero_init=zero_init),
-                         lambda: fused_solve.solve_step(*t[:8], du, dv, **kw),
-                         lambda: fused_solve.solve_step_ref(*t[:8], du, dv,
-                                                            **kw),
-                         f"K1 method {method} zero_init={zero_init!s:5} "
-                         f"{h}x{w} (ndu, ndv, sums)")
+    # bench shapes (resident), B = 16 (streaming), odd shapes, short runs
+    cases = [(4, 270, 480, m, p.niter_solver) for m in (0, 1, 2)]
+    cases += [(4, 176, 314, m, p.niter_solver) for m in (0, 1, 2)]
+    cases += [(16, 270, 480, 1, p.niter_solver), (3, 37, 5, 1, 30),
+              (1, 45, 70, 2, 1), (2, 9, 1, 0, 0)]
+    for (b, h, w, method, iterations) in cases:
+        t = _k1_inputs(b, h, w, 1, dev)
+        resident = fused_solve.solve_plan(b, h, w).resident
+        for zero_init in (True, False):
+            du, dv = (None, None) if zero_init else (t[8], t[9])
+            kw = dict(alpha=p.alpha, reg_pen=reg, method=method,
+                      iterations=iterations, omega=p.sor_omega,
+                      with_change=True)
+            _compare("solve_step", dict(shape=[b, h, w], method=method,
+                                        zero_init=zero_init,
+                                        iterations=iterations,
+                                        resident=resident),
+                     lambda: fused_solve.solve_step(*t[:8], du, dv, **kw),
+                     lambda: fused_solve.solve_step_ref(*t[:8], du, dv, **kw),
+                     f"K1 method {method} zero_init={zero_init!s:5} "
+                     f"{b}x{h}x{w} x {iterations} sweeps "
+                     f"({'resident' if resident else 'streaming'})",
+                     work=_work_solve(b, h, w, method, zero_init, iterations))
+    check(not fused_solve.solve_plan(16, 270, 480).resident,
+          "K1 at 16x270x480 takes the streaming path")
+
+    # the change sums are bit-identical from run to run
+    t = _k1_inputs(4, 270, 480, 1, dev)
+    kw = dict(alpha=p.alpha, reg_pen=reg, method=1, iterations=p.niter_solver,
+              omega=p.sor_omega, with_change=True)
+    first = fused_solve.solve_step(*t[:8], None, None, **kw)[2].cpu()
+    same = all(torch.equal(
+        fused_solve.solve_step(*t[:8], None, None, **kw)[2].cpu(), first)
+        for _ in range(20))
+    RECORD["k1_sums_bit_identical_20_runs"] = same
+    check(same, "K1 change sums bit-identical over 20 runs at 4x270x480")
 
 
 def route_kernels_vs_twins():
@@ -264,48 +443,41 @@ def route_kernels_vs_twins():
 
     dev = torch.device("cuda")
     p = bench_params()
+    f = 2 * p.ref + 1
     for (h, w) in ((270, 480), (176, 314)):
         seq, wx, wy, occ, du, dv, cw = _k2_inputs(4, h, w, 0, dev)
         shape = [4, h, w]
         warped, masks = warp_shift.warp_stack_ref(seq, wx, wy, p.ref)
         raw = terms.succ_mask(masks, p.ref)
         gated = terms.gate_masks(raw, occ, p)
-        for mode, zero_duv in (("assembly", False), ("assembly", True),
-                               ("occ", False), ("occ", True),
-                               ("occ_assembly", True)):
+        for mode, zero_duv in VARIANTS:
             args = (warped, gated if mode == "assembly" else raw, du, dv, cw,
                     p)
             kw = dict(mode=mode, zero_duv=zero_duv)
             _compare("fused_data", dict(shape=shape, **kw),
                      lambda: fused_data.fused_data_system(*args, **kw),
                      lambda: fused_data.fused_data_system_ref(*args, **kw),
-                     f"K3 {mode:12s} zero_duv={zero_duv!s:5} {h}x{w}")
+                     f"K3 {mode:12s} zero_duv={zero_duv!s:5} {h}x{w}",
+                     work=_work_assembly(p, 4, h, w, mode, zero_duv, False))
 
+        k4_factors = tuple(float(k - p.ref) for k in range(f))
         for motion, shift in (("bench", 0.0), ("20px", 20.0)):
             fx, fy = wx + shift, wy - 0.45 * shift
             _compare("warp_stack", dict(shape=shape, motion=motion),
                      lambda: warp_shift.warp_stack(seq, fx, fy, p.ref),
                      lambda: warp_shift.warp_stack_ref(seq, fx, fy, p.ref),
-                     f"K4 warp_stack {motion:5s} {h}x{w}")
+                     f"K4 warp_stack {motion:5s} {h}x{w}",
+                     work=_work_warp(4, f, h, w, f - 1),
+                     library_ms=_grid_sample_ms(seq, fx, fy, k4_factors))
 
         factors = (-2.0, -1.0, 0.0, 1.0, 2.0)
         _compare("warp_stack_pallas", dict(shape=shape, factors=factors),
                  lambda: warp_pallas.warp_stack_pallas(seq, wx, wy, factors),
                  lambda: warp_pallas.warp_stack_pallas_ref(seq, wx, wy,
                                                            factors),
-                 f"K6 warp_stack_pallas factors -2..2 {h}x{w}")
-
-        t = _k1_inputs(4, h, w, 2, dev)
-        rng = np.random.default_rng(3)
-        wh, wv = (torch.tensor(0.5 * rng.random((4, h, w)) + 0.05,
-                               dtype=torch.float32, device=dev)
-                  for _ in range(2))
-        system = (t[8], t[9], *t[3:8], wh, wv)   # du, dv nonzero
-        kw = dict(iterations=p.niter_solver, omega=p.sor_omega)
-        _compare("sor", dict(shape=shape, iterations=p.niter_solver),
-                 lambda: solver_pallas.sor_coupled_rb_pallas(*system, **kw),
-                 lambda: solver_pallas.sor_coupled_rb(*system, **kw),
-                 f"K5 sor {p.niter_solver} sweeps from du, dv != 0 {h}x{w}")
+                 f"K6 warp_stack_pallas factors -2..2 {h}x{w}",
+                 work=_work_warp(4, len(factors), h, w, len(factors)),
+                 library_ms=_grid_sample_ms(seq, wx, wy, factors))
 
         # K3 on K4's stack (succ_mask, gated for assembly) against K2
         kwarped, kmasks = warp_shift.warp_stack(seq, wx, wy, p.ref)
@@ -320,15 +492,29 @@ def route_kernels_vs_twins():
                          seq, wx, wy, occ, du, dv, cw, p, mode=mode),
                      f"K3 on K4's stack vs K2 {mode:8s} {h}x{w}")
 
+    for (b, h, w) in ((4, 270, 480), (4, 176, 314), (16, 270, 480)):
+        t = _k1_inputs(b, h, w, 2, dev)
+        rng = np.random.default_rng(3)
+        wh, wv = (torch.tensor(0.5 * rng.random((b, h, w)) + 0.05,
+                               dtype=torch.float32, device=dev)
+                  for _ in range(2))
+        system = (t[8], t[9], *t[3:8], wh, wv)   # du, dv nonzero
+        kw = dict(iterations=p.niter_solver, omega=p.sor_omega)
+        _compare("sor", dict(shape=[b, h, w], iterations=p.niter_solver),
+                 lambda: solver_pallas.sor_coupled_rb_pallas(*system, **kw),
+                 lambda: solver_pallas.sor_coupled_rb(*system, **kw),
+                 f"K5 sor {p.niter_solver} sweeps from du, dv != 0 "
+                 f"{b}x{h}x{w}", work=_work_sor(b, h, w, p.niter_solver))
+
 
 # ---------------------------------------------------------------- phase 3
 def _bench_scene(b, h, w, device):
     import torch
 
-    from bench import _moving_sequence
+    from slowflow_tpu_torch.bench_scene import moving_sequence
 
-    return torch.tensor(np.stack([_moving_sequence(5, h, w, 1.5 + 0.2 * s,
-                                                   -0.8, seed=s)
+    return torch.tensor(np.stack([moving_sequence(5, h, w, 1.5 + 0.2 * s,
+                                                  -0.8, seed=s)
                                   for s in range(b)]), device=device)
 
 
@@ -440,22 +626,28 @@ def _profile(route):
         multiframe.variational_mt_batched(zero, zero, seq, p, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", 0) or \
-            getattr(ev, "cuda_time_total", 0)
-        if us and ev.key and not ev.key.startswith(("cudaLaunch", "aten::",
-                                                    "cuda")):
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3
+    by_name, launches = {}, {}
+    for ev in _kernel_events(prof):
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+            ev.time_range.elapsed_us() / 1e3
+        launches[ev.name] = launches.get(ev.name, 0) + 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    # the profiler stretches the wall time: the idle share is also taken
+    # against the same route's unprofiled kernel run
+    unprofiled = RECORD.get("slices", {}).get(route, {}).get("kernel_wall_s")
     RECORD.setdefault("profiles", {})[route] = dict(
         wall_ms=wall * 1e3, device_busy_ms=busy,
-        idle_share=1 - busy / (wall * 1e3), top_kernels_ms=top)
+        idle_share=1 - busy / (wall * 1e3),
+        idle_share_unprofiled=None if unprofiled is None
+        else 1 - busy / (unprofiled * 1e3), top_kernels_ms=top,
+        kernel_launches=sum(launches.values()),
+        top_launches={k: launches[k] for k, _ in top})
     print(f"profiled {route} slice: wall {wall * 1e3:.1f} ms, device busy "
-          f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}")
+          f"{busy:.1f} ms, idle share {1 - busy / (wall * 1e3):.3f}, "
+          f"{sum(launches.values())} CUDA kernel launches")
     for name, ms in top:
-        print(f"  {ms:9.2f} ms  {name[:100]}")
+        print(f"  {ms:9.2f} ms  {launches[name]:6d} x  {name[:90]}")
     check(busy > 0, f"profiler saw device time on the {route} route")
 
 
@@ -554,6 +746,8 @@ def _cli_flows(out, u, v, what):
         if not path.exists():
             check(False, f"{what} wrote {name}")
             continue
+        from slowflow_tpu_torch.io import read_flo
+
         flow = read_flo(path)[inner]
         mu, mv = float(flow[..., 0].mean()), float(flow[..., 1].mean())
         flows[name] = (mu, mv)
@@ -595,38 +789,45 @@ def main() -> int:
     def kernel_entry(name, source, replaces, route, main_case):
         rows = kv.get(name, [])
         main = [r for r in rows if r["shape"] == bench_shape and main_case(r)]
+        main = main[0] if main else {}
         counts = slices.get(route, {}).get("kernel_counts", {})
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": counts.get(name, 0),
                 "max_abs_err": max((r["abs_err"] for r in rows), default=None),
-                "ms": main[0]["ms"] if main else None,
-                "plain_ms": main[0]["plain_ms"] if main else None}
+                **{k: main.get(k) for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "launches_per_call", "device_ms")}}
 
     csrc = "slowflow_tpu_torch/csrc/"
     line = {"kernels": [
         kernel_entry("warp_assemble", csrc + "warp_assemble.cu",
-                     "slowflow_tpu/variational/fused_warp.py:132", "merged",
+                     "slowflow_tpu/variational/fused_warp.py:369", "merged",
                      lambda r: r["mode"] == "assembly" and r["zero_duv"]),
         kernel_entry("solve_step", csrc + "solve_step.cu",
-                     "slowflow_tpu/variational/fused_solve.py:166", "merged",
+                     "slowflow_tpu/variational/fused_solve.py:375", "merged",
                      lambda r: r["method"] == 1 and r["zero_init"]),
         kernel_entry("fused_data", csrc + "fused_data.cu",
-                     "slowflow_tpu/variational/fused_data.py:374", "stack",
+                     "slowflow_tpu/variational/fused_data.py:438", "stack",
                      lambda r: r["mode"] == "assembly" and r["zero_duv"]),
         kernel_entry("warp_stack", csrc + "warp_stack.cu",
-                     "slowflow_tpu/core/warp_shift.py:43", "stack",
+                     "slowflow_tpu/core/warp_shift.py:120", "stack",
                      lambda r: r["motion"] == "bench"),
         kernel_entry("sor", csrc + "solve_step.cu",
-                     "slowflow_tpu/core/solver_pallas.py:34", "stack",
+                     "slowflow_tpu/core/solver_pallas.py:126", "stack",
                      lambda r: True),
         kernel_entry("warp_stack_pallas", csrc + "warp_stack.cu",
                      "slowflow_tpu/core/warp_pallas.py:27", "unfused",
                      lambda r: True),
     ]}
     for entry in line["kernels"]:
-        check(entry["launches"] > 0 and entry["ms"] is not None,
+        check(entry["launches"] > 0 and entry["ms"] is not None
+              and entry["bound_ms"] is not None,
               f"{entry['name']}: {entry['launches']} launches on its route, "
-              f"{entry['ms']} ms")
+              f"{entry['ms']} ms, bound {entry['bound_ms']} ms")
+    for name in ("solve_step", "sor"):
+        per_call = {r.get("launches_per_call") for r in kv.get(name, [])}
+        check(per_call == {1}, f"{name}: CUDA launches per call under the "
+              f"profiler {sorted(per_call, key=str)} (one cooperative launch)")
     RECORD["failures"] = FAILURES
     with open(OUT_DIR / "chip_smoke.json", "w") as fh:
         json.dump(RECORD, fh, indent=1)

@@ -1,0 +1,171 @@
+"""Run chip_smoke.py, or the bench-config slice alone, in turns on a parent
+tree and on this tree, on one card.
+
+    python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR [--rounds N]
+    python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR --slice REPS [--rounds N]
+
+PARENT_DIR holds an unpacked tree of the commit to compare with (for
+example `git archive HEAD | tar -x -C _archive/parent`, a directory that
+.gitignore lists). Each round runs the parent, this tree, this tree, the
+parent, so drift on the card falls on both alike. Each run's record
+(chip_smoke.json in its tree's output directory, chip_smoke.OUT_DIR) is
+copied to OUT_DIR/ab/<n>_<tag>.json beside its output, and one line per run is
+printed: K1 (method 1, from zero, with sums) and K2 (`assembly`, zero_duv)
+at 4x270x480 by CUDA events, the merged and stack slices' wall time per
+batch of 4 and the merged slice's device idle share (profiled device busy
+time over the unprofiled wall time). Exits non-zero if a run fails.
+
+With --slice, each turn is a fresh process that imports that tree's
+slowflow_tpu_torch, solves the merged-route slice of chip_smoke.py (bench
+config, batch 4, 270x480, the scene of this tree's bench_scene.py) once to
+warm up and REPS times on the clock, then once under torch.profiler for
+the device busy time; it prints the median and every wall time, and the
+idle share against the median.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+BENCH = [4, 270, 480]
+
+
+def _out_dir() -> Path:
+    """chip_smoke.py's output directory (gitignored)."""
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import OUT_DIR
+
+    return OUT_DIR
+
+
+def _row(record, name, **match):
+    for r in record.get("kernels_vs_twins", {}).get(name, []):
+        if r["shape"] == BENCH and all(r.get(k) == v for k, v in match.items()):
+            return r
+    return {}
+
+
+def summary(record) -> dict:
+    slices = record.get("slices", {})
+    prof = record.get("profiles", {}).get("merged", {})
+    wall = slices.get("merged", {}).get("kernel_wall_s")
+    busy = prof.get("device_busy_ms")
+    return {
+        "k1_ms": _row(record, "solve_step", method=1, zero_init=True).get("ms"),
+        "k2_assembly_zero_duv_ms": _row(record, "warp_assemble",
+                                        mode="assembly", zero_duv=True).get("ms"),
+        "k2_occ_assembly_ms": _row(record, "warp_assemble",
+                                   mode="occ_assembly").get("ms"),
+        "k3_assembly_zero_duv_ms": _row(record, "fused_data", mode="assembly",
+                                        zero_duv=True).get("ms"),
+        "k5_ms": _row(record, "sor").get("ms"),
+        "merged_wall_s": wall,
+        "stack_wall_s": slices.get("stack", {}).get("kernel_wall_s"),
+        "merged_device_busy_ms": busy,
+        "merged_idle_share": None if not (wall and busy)
+        else 1 - busy / (wall * 1e3),
+        "merged_flow_recovery_err_px":
+            slices.get("merged", {}).get("flow_recovery_err_px"),
+    }
+
+
+SLICE = """
+import importlib.util, json, statistics, sys, time
+sys.path.insert(0, {tree!r})
+import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+spec = importlib.util.spec_from_file_location("scene", {scene!r})
+scene = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(scene)
+from slowflow_tpu_torch.variational import multiframe
+from slowflow_tpu_torch.variational.params import MultiFrameParams
+p = MultiFrameParams(S=3, alpha=4.0, gamma=6.0, delta=1.0, rho=(1.0, 1.0),
+                     omega=(0.0, 2.0), layers=5, p_scale=0.9, niter_alter=10,
+                     niter_outer=10, niter_inner=1, niter_solver=30,
+                     occlusion_reasoning=True, smoothing=1)
+dev, (b, h, w) = torch.device("cuda"), (4, 270, 480)
+seq = torch.tensor(np.stack([scene.moving_sequence(5, h, w, 1.5 + 0.2 * s,
+                                                   -0.8, seed=s)
+                             for s in range(b)]), device=dev)
+zero = torch.zeros((b, h, w), device=dev)
+def solve():
+    out = multiframe.variational_mt_batched(zero, zero, seq, p, device=dev)
+    torch.cuda.synchronize()
+    return out
+solve()
+walls = []
+for _ in range({reps}):
+    t0 = time.perf_counter()
+    wx = solve()[0]
+    walls.append(time.perf_counter() - t0)
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    solve()
+busy = sum(e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == DeviceType.CUDA) / 1e3
+print(json.dumps(dict(walls=walls, median_s=statistics.median(walls),
+                      busy_ms=busy, idle_share=1 - busy / (
+                          statistics.median(walls) * 1e3),
+                      flow_recovery_err_px=abs(float(
+                          wx[0, 8:-8, 8:-8].median()) - 1.5))))
+"""
+
+
+def run_slice(tree: Path, tag: str, n: int, reps: int) -> dict:
+    code = SLICE.format(tree=str(tree), reps=reps, scene=str(
+        HERE / "slowflow_tpu_torch" / "bench_scene.py"))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                          capture_output=True, text=True, timeout=900)
+    result = json.loads(proc.stdout.strip().splitlines()[-1]) \
+        if proc.returncode == 0 else {"stderr": proc.stderr[-2000:]}
+    line = dict(run=n, tree=tag, rc=proc.returncode, **result)
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def run(tree: Path, tag: str, n: int, out: Path) -> dict:
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tree,
+                          capture_output=True, text=True, timeout=1300)
+    (out / f"{n}_{tag}.log").write_text(proc.stdout + proc.stderr)
+    record_path = tree / _out_dir().name / "chip_smoke.json"
+    record = json.loads(record_path.read_text()) if record_path.exists() \
+        else {}
+    if record_path.exists():
+        shutil.copy(record_path, out / f"{n}_{tag}.json")
+    line = dict(run=n, tree=tag, rc=proc.returncode, **summary(record))
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("parent", type=Path)
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--slice", type=int, default=0, metavar="REPS",
+                    help="time the merged slice REPS times per turn instead "
+                         "of running chip_smoke.py")
+    args = ap.parse_args(argv)
+    out = _out_dir() / "ab"
+    out.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    lines = []
+    for r in range(args.rounds):
+        for tag in ("parent", "change", "change", "parent"):
+            tree = args.parent.resolve() if tag == "parent" else HERE
+            lines.append(run_slice(tree, tag, len(lines), args.slice)
+                         if args.slice else run(tree, tag, len(lines), out))
+    name = "slice_summary.json" if args.slice else "summary.json"
+    (out / name).write_text(json.dumps(dict(card=smi, runs=lines), indent=1))
+    return 0 if all(line["rc"] == 0 for line in lines) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,19 +1,55 @@
-"""Shared CLI helpers: frame loading (demosaic / crop / scale) with a torch
-blur + resize. Frame naming and output folders come from the JAX package's
-jax-free helpers."""
+"""Shared CLI helpers: frame naming (sintel numbering included), frame
+loading (demosaic / crop / scale) with a torch blur + resize, and
+collision-free output folders."""
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 
-from slowflow_tpu.cli.common import frame_path, unique_output_dir  # noqa: F401
-from slowflow_tpu.io.images import read_image
-from slowflow_tpu.utils.demosaic import bayer2rgb, bayer2rgb_green_ratio
-
 from ..core.conv import gaussian_blur
 from ..core.image import resize_bilinear
+from ..io.images import read_image
+from ..utils.demosaic import (bayer2rgb, bayer2rgb_green_ratio,
+                              bayer2rgb_hamilton_adams)
+
+
+def sintel_frame_name(start: int, offset: int):
+    """Sintel's two-level frame numbering (slow_flow.cpp:453-465): frame ids
+    encode (sequence_frame * 1000 + high-speed subframe), 42 subframes per
+    24fps frame. Returns (sintel_frame, hfr_frame)."""
+    sintel_frame = start // 1000
+    hfr_frame = offset + (start % 1000)
+    while hfr_frame < 0:
+        sintel_frame -= 1
+        hfr_frame += 42
+    while hfr_frame > 41:
+        sintel_frame += 1
+        hfr_frame -= 42
+    return sintel_frame, hfr_frame
+
+
+def frame_path(sequence_path: str, fmt: str, start: int, offset: int,
+               sintel: bool) -> str:
+    if not sintel:
+        return os.path.join(sequence_path, fmt % (start + offset))
+    sf, hf = sintel_frame_name(start, offset)
+    return os.path.join(sequence_path, fmt % (sf, hf))
+
+
+def unique_output_dir(path: str, resume: bool, overwrite: bool) -> str:
+    """Collision-avoiding output dir (slow_flow.cpp:253-266): suffix _N."""
+    path = path.rstrip("/")
+    if not resume and not overwrite:
+        num = 1
+        new_path = path
+        while os.path.exists(new_path):
+            new_path = f"{path}_{num}"
+            num += 1
+        path = new_path
+    return path + "/"
 
 
 def gaussian_resize(img: np.ndarray, scale: float,
@@ -44,7 +80,6 @@ def load_frame(path: str, params, scale: float, red_loc=(1, 0),
         if mode == 0:
             img = bayer2rgb_green_ratio(img, red_loc[0], red_loc[1])
         elif mode == 1:
-            from slowflow_tpu.utils.demosaic import bayer2rgb_hamilton_adams
             img = bayer2rgb_hamilton_adams(img, red_loc[0], red_loc[1])
         else:
             img8 = img / 256.0 if img.max() > 255.0 else img

@@ -25,15 +25,13 @@ import time
 import numpy as np
 import torch
 
-from slowflow_tpu.config import ParameterList, Verbosity
-from slowflow_tpu.io import read_flo, write_flo, write_pbm
-from slowflow_tpu.io.images import write_image
-from slowflow_tpu.utils.colorwheel import flow_color_img
-from slowflow_tpu.utils.demosaic import raw_weighting
-from slowflow_tpu.utils.metrics import compute_epe
-
+from ..config import ParameterList, Verbosity
 from ..core.image import normalize_sequence, resize_bilinear
+from ..io import read_flo, write_flo, write_image, write_pbm
 from ..runtime import resolve_device
+from ..utils.colorwheel import flow_color_img
+from ..utils.demosaic import raw_weighting
+from ..utils.metrics import compute_epe
 from ..variational.multiframe import variational_mt_batched
 from ..variational.params import MultiFrameParams
 from .common import frame_path, load_frame, unique_output_dir

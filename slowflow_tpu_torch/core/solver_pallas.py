@@ -6,13 +6,15 @@ kernel `slowflow_tpu.core.solver_pallas._sor_kernel`, wrapper
 the plain twin core/solver.py `sor_coupled_rb`, CUDA tensors to
 `sf_sor_coupled_rb` in csrc/solve_step.cu (or an error). The kernel zeroes
 the boundary weights and forms the 2x2 inverse in its prologue, as the TPU
-wrapper does before its kernel, then reuses K1's half-sweep launches.
+wrapper does before its kernel, then runs K1's sweep core, all in one
+cooperative launch.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import kernels
+from ..variational.fused_solve import solve_plan
 from .solver import sor_coupled_rb
 
 
@@ -38,11 +40,12 @@ def sor_coupled_rb_pallas(du, dv, a11, a12, a22, b1, b2, wh, wv, *,
     b = du.numel() // (h * w)
     ndu = torch.empty_like(du)
     ndv = torch.empty_like(dv)
-    scratch = torch.empty((7, b, h, w), dtype=torch.float32, device=dev)
+    n_scratch = solve_plan(b, h, w, k5=True).scratch_floats
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     lib = kernels.load()
     err = lib.sf_sor_coupled_rb(
         *(kernels.ptr(t) for t in (du, dv, a11, a12, a22, b1, b2, wh, wv,
-                                   ndu, ndv, scratch)),
+                                   ndu, ndv, scratch)), n_scratch,
         b, h, w, int(iterations), float(omega), kernels.stream_ptr(dev))
     kernels.check(err, "sor")
     kernels.LAUNCHES["sor"] += 1

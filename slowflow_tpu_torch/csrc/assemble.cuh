@@ -99,6 +99,21 @@ cudaError_t dispatch_mode(int mode, int zero_duv, Fn&& fn) {
   return cudaErrorInvalidValue;  // occ_assembly needs zero_duv
 }
 
+// Resident blocks per SM, registers per thread and local (spill) bytes per
+// thread of an assembly kernel at `smem` bytes of dynamic shared memory.
+template <class Kern>
+cudaError_t kernel_occupancy(Kern kern, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  if ((err = cudaFuncGetAttributes(&fa, kern)) != cudaSuccess) return err;
+  out[1] = fa.numRegs;
+  out[2] = (int)fa.localSizeBytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kern, NT,
+                                                       smem);
+}
+
 __device__ __forceinline__ float d5(float a, float b, float c, float d) {
   // taps at -2, -1, +1, +2 summed in the reference's order
   return ((C0 * a + C1 * b) + C3 * c) + C4 * d;
@@ -111,17 +126,17 @@ __device__ __forceinline__ void assemble_succ(
     const AsmParams& P, int s, float m, const float (&d)[3][8],
     const float (&cwv)[3], float du, float dv, float (&acc)[5]) {
   if (P.delta_on) {
-    float nn[3], arg = 0.f;
+    float rn[3], arg = 0.f;  // reciprocal of each channel's normalization
     for (int c = 0; c < 3; ++c) {
       const float ix = d[c][0], iy = d[c][1], iz = d[c][2];
       const float t = ZERO_DUV ? cwv[c] * iz : cwv[c] * (iz - ix * du - iy * dv);
-      nn[c] = P.norm ? ix * ix + iy * iy + DATANORM : 1.f;
-      arg += P.norm ? t * t / nn[c] : t * t;
+      rn[c] = P.norm ? 1.f / (ix * ix + iy * iy + DATANORM) : 1.f;
+      arg += t * t * rn[c];
     }
     const float wgt = m * P.wd_s[s] * pen_deriv(P.color, arg);
     for (int c = 0; c < 3; ++c) {
       const float ix = d[c][0], iy = d[c][1], iz = d[c][2];
-      const float coef = P.norm ? wgt * cwv[c] / nn[c] : wgt * cwv[c];
+      const float coef = wgt * cwv[c] * rn[c];
       acc[0] += coef * ix * ix;
       acc[1] += coef * ix * iy;
       acc[2] += coef * iy * iy;
@@ -130,26 +145,21 @@ __device__ __forceinline__ void assemble_succ(
     }
   }
   if (P.gamma_on) {
-    float n1[3], n2[3], arg = 0.f;
+    float r1[3], r2[3], arg = 0.f;
     for (int c = 0; c < 3; ++c) {
       const float ixx = d[c][3], ixy = d[c][4], iyy = d[c][5];
       const float ixz = d[c][6], iyz = d[c][7];
       const float t1 = ZERO_DUV ? cwv[c] * ixz : cwv[c] * (ixz - ixx * du - ixy * dv);
       const float t2 = ZERO_DUV ? cwv[c] * iyz : cwv[c] * (iyz - ixy * du - iyy * dv);
-      if (P.norm) {
-        n1[c] = ixx * ixx + ixy * ixy + DATANORM;
-        n2[c] = iyy * iyy + ixy * ixy + DATANORM;
-        arg += t1 * t1 / n1[c] + t2 * t2 / n2[c];
-      } else {
-        n1[c] = n2[c] = 1.f;
-        arg += t1 * t1 + t2 * t2;
-      }
+      r1[c] = P.norm ? 1.f / (ixx * ixx + ixy * ixy + DATANORM) : 1.f;
+      r2[c] = P.norm ? 1.f / (iyy * iyy + ixy * ixy + DATANORM) : 1.f;
+      arg += t1 * t1 * r1[c] + t2 * t2 * r2[c];
     }
     const float wgt = m * P.wg_s[s] * pen_deriv(P.grad, arg);
     for (int c = 0; c < 3; ++c) {
       const float ixx = d[c][3], ixy = d[c][4], iyy = d[c][5];
       const float ixz = d[c][6], iyz = d[c][7];
-      const float c1 = wgt * cwv[c] / n1[c], c2 = wgt * cwv[c] / n2[c];
+      const float c1 = wgt * cwv[c] * r1[c], c2 = wgt * cwv[c] * r2[c];
       acc[0] += c1 * ixx * ixx + c2 * ixy * ixy;
       acc[1] += c1 * ixx * ixy + c2 * ixy * iyy;
       acc[2] += c2 * iyy * iyy + c1 * ixy * ixy;
@@ -165,18 +175,18 @@ __device__ __forceinline__ void assemble_ref(
     const float (&cwv)[3], float du, float dv, float (&acc)[5]) {
   const float fac = P.fac[s], facsq = fac * fac;
   if (P.delta_on) {
-    float nn[3], arg = 0.f;
+    float rn[3], arg = 0.f;
     for (int c = 0; c < 3; ++c) {
       const float ix = d[c][0], iy = d[c][1], iz = d[c][2];
       const float t = ZERO_DUV ? cwv[c] * iz
                                : cwv[c] * (iz + ix * fac * du + iy * fac * dv);
-      nn[c] = P.norm ? facsq * (ix * ix + iy * iy) + DATANORM : facsq;
-      arg += t * t / nn[c];
+      rn[c] = 1.f / (P.norm ? facsq * (ix * ix + iy * iy) + DATANORM : facsq);
+      arg += t * t * rn[c];
     }
     const float wgt = m * P.wd_r[s] * pen_deriv(P.color, arg);
     for (int c = 0; c < 3; ++c) {
       const float ix = d[c][0], iy = d[c][1], iz = d[c][2];
-      const float coef = wgt * cwv[c] / nn[c];
+      const float coef = wgt * cwv[c] * rn[c];
       acc[3] -= coef * fac * iz * ix;
       acc[4] -= coef * fac * iz * iy;
       acc[0] += coef * facsq * ix * ix;
@@ -185,7 +195,7 @@ __device__ __forceinline__ void assemble_ref(
     }
   }
   if (P.gamma_on) {
-    float n1[3], n2[3], arg = 0.f;
+    float r1[3], r2[3], arg = 0.f;
     for (int c = 0; c < 3; ++c) {
       const float ixx = d[c][3], ixy = d[c][4], iyy = d[c][5];
       const float ixz = d[c][6], iyz = d[c][7];
@@ -193,15 +203,15 @@ __device__ __forceinline__ void assemble_ref(
                                 : cwv[c] * (ixz + ixx * fac * du + ixy * fac * dv);
       const float t2 = ZERO_DUV ? cwv[c] * iyz
                                 : cwv[c] * (iyz + ixy * fac * du + iyy * fac * dv);
-      n1[c] = P.norm ? facsq * (ixx * ixx + ixy * ixy) + DATANORM : facsq;
-      n2[c] = P.norm ? facsq * (iyy * iyy + ixy * ixy) + DATANORM : facsq;
-      arg += t1 * t1 / n1[c] + t2 * t2 / n2[c];
+      r1[c] = 1.f / (P.norm ? facsq * (ixx * ixx + ixy * ixy) + DATANORM : facsq);
+      r2[c] = 1.f / (P.norm ? facsq * (iyy * iyy + ixy * ixy) + DATANORM : facsq);
+      arg += t1 * t1 * r1[c] + t2 * t2 * r2[c];
     }
     const float wgt = m * P.wg_r[s] * pen_deriv(P.grad, arg);
     for (int c = 0; c < 3; ++c) {
       const float ixx = d[c][3], ixy = d[c][4], iyy = d[c][5];
       const float ixz = d[c][6], iyz = d[c][7];
-      const float c1 = wgt * cwv[c] / n1[c], c2 = wgt * cwv[c] / n2[c];
+      const float c1 = wgt * cwv[c] * r1[c], c2 = wgt * cwv[c] * r2[c];
       acc[3] -= c1 * fac * ixx * ixz + c2 * fac * ixy * iyz;
       acc[4] -= c2 * fac * iyy * iyz + c1 * fac * ixy * ixz;
       acc[0] += c1 * facsq * ixx * ixx + c2 * facsq * ixy * ixy;
@@ -234,11 +244,8 @@ __device__ __forceinline__ void assemble_tile(
   const float duv = ZERO_DUV ? 0.f : du[b * HW + pp];
   const float dvv = ZERO_DUV ? 0.f : dv[b * HW + pp];
   // clamped tap positions (local Ix / Iy tile coordinates) for Ixx / Iyy
-  int cx[5], cy[5];
-  for (int t = 0; t < 5; ++t) {
-    cx[t] = clampi(gx + t - 2, 0, W - 1) - x0 + 2;
-    cy[t] = clampi(gy + t - 2, 0, H - 1) - y0 + 2;
-  }
+  auto cx = [&](int t) { return clampi(gx + t - 2, 0, W - 1) - x0 + 2; };
+  auto cy = [&](int t) { return clampi(gy + t - 2, 0, H - 1) - y0 + 2; };
 
   float acc[2][5] = {};
   float e0 = 0.f, e1 = 0.f, n0 = 0.f, n1 = 0.f;
@@ -299,11 +306,11 @@ __device__ __forceinline__ void assemble_tile(
           const float* xrow = X + (oy + 2) * XW;
           d[c][0] = xrow[ox + 2];
           d[c][1] = Y[(oy + 2) * YW + ox];
-          d[c][3] = d5(xrow[cx[0]], xrow[cx[1]], xrow[cx[3]], xrow[cx[4]]);
+          d[c][3] = d5(xrow[cx(0)], xrow[cx(1)], xrow[cx(3)], xrow[cx(4)]);
           d[c][4] = d5(X[oy * XW + ox + 2], X[(oy + 1) * XW + ox + 2],
                        X[(oy + 3) * XW + ox + 2], X[(oy + 4) * XW + ox + 2]);
-          d[c][5] = d5(Y[cy[0] * YW + ox], Y[cy[1] * YW + ox],
-                       Y[cy[3] * YW + ox], Y[cy[4] * YW + ox]);
+          d[c][5] = d5(Y[cy(0) * YW + ox], Y[cy(1) * YW + ox],
+                       Y[cy(3) * YW + ox], Y[cy(4) * YW + ox]);
         }
       }
 

@@ -1,5 +1,6 @@
 // Shared device helpers of the slow-flow kernels: the robust penalties of
-// slowflow_tpu_torch/core/penalty.py, selected by their integer id.
+// slowflow_tpu_torch/core/penalty.py, selected by their integer id, and
+// cp.async.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,6 +37,22 @@ __device__ __forceinline__ float pen_deriv(const Pen& p, float s) {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// 4-byte asynchronous copy global -> shared (sm_80+); cp_async_wait_all
+// waits for every copy this thread committed.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 }  // namespace sf

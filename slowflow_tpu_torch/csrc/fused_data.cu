@@ -86,3 +86,13 @@ extern "C" int sf_fused_data(const float* warped, const float* mask,
     return cudaGetLastError();
   });
 }
+
+// out[0..2] = resident blocks per SM, registers per thread, spill bytes per
+// thread of the (mode, zero_duv) variant at a window of 2 ref + 1 frames.
+extern "C" int sf_fused_data_occupancy(int mode, int zero_duv, int ref, int* out) {
+  if (ref < 1 || 2 * ref > MAXN) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_mode(mode, zero_duv, [&](auto m, auto z) {
+    return kernel_occupancy(fused_data_kernel<decltype(m)::value, decltype(z)::value>,
+                            tile_smem_bytes(2 * ref + 1), out);
+  });
+}

@@ -21,15 +21,21 @@
 // per call at 4 x 270 x 480 -> ~20 us at 3.35 TB/s; the derivative and
 // assembly math is ~2000 flops per pixel and offset group.
 //
-// Design: one block of 32 x 16 threads per output tile, blockIdx.z = jet.
-// The load phase IS the warp: the block gathers its tile plus a 4-pixel halo
-// of every window frame into dynamic shared memory (5 frames x 3 channels x
-// 24 x 40 floats = 57.6 KB at S = 3). Halo pixels outside the image take the
-// warped value at the clamped image pixel, which is the edge replication the
-// reference applies to each warped plane. The derivatives and the assembly
-// are assemble.cuh's `assemble_tile`, shared with K3 (fused_data.cu); the
-// mask of offset s is the warp-coordinate validity of its frame, times the
-// occlusion gate in assembly mode.
+// Design: one block of 32 x 16 threads per output tile, blockIdx.z = jet,
+// at most 64 registers a thread (42 in "occ" mode) so that two (three)
+// blocks share an SM and one block's gather overlaps another's math. The load phase IS the warp:
+// the block copies the reference frame's tile plus a 4-pixel halo into
+// dynamic shared memory with cp.async (issued first, waited last), then for
+// each halo-tile position reads the flow once and gathers the 4 clamped
+// corners x 3 channels of every other window frame from it (5 frames x 3
+// channels x 24 x 40 floats = 57.6 KB at S = 3). Halo pixels outside the
+// image take the warped value at the clamped image pixel, which is the edge
+// replication the reference applies to each warped plane. The derivatives and
+// the assembly are assemble.cuh's `assemble_tile`, shared with K3
+// (fused_data.cu); the mask of offset s is the warp-coordinate validity of its
+// frame, times the occlusion gate in assembly mode. The tile stays 32 x 16
+// (1.875x halo): a taller tile needs more threads or more state per thread,
+// and either breaks the two-blocks-per-SM register budget.
 // Warp coordinates use __fmul_rn/__fadd_rn so that floor() sees the same
 // rounded x = j + fac * wx as the plain version (no FMA contraction there);
 // elsewhere nvcc's FMA contraction makes results differ from the twin in
@@ -41,7 +47,7 @@ using namespace sf;
 namespace {
 
 template <int MODE, bool ZERO_DUV>
-__global__ void __launch_bounds__(NT) warp_assemble_kernel(
+__global__ void __launch_bounds__(NT, MODE == MODE_OCC ? 3 : 2) warp_assemble_kernel(
     const float* __restrict__ seq, const float* __restrict__ wx,
     const float* __restrict__ wy, const float* __restrict__ occ,
     const float* __restrict__ du, const float* __restrict__ dv,
@@ -59,36 +65,45 @@ __global__ void __launch_bounds__(NT) warp_assemble_kernel(
   const size_t HW = (size_t)H * W;
   const float* fxp = wx + b * HW;
   const float* fyp = wy + b * HW;
+  const float* win = seq + (size_t)b * F * 3 * HW;
 
-  // ---- load phase: warp every window frame onto the halo tile ----
-  for (int idx = tid; idx < F * LH * LW; idx += NT) {
-    const int k = idx / (LH * LW), r = idx % (LH * LW);
-    const int ly = r / LW, lx = r % LW;
-    const int gy = clampi(y0 - EXT + ly, 0, H - 1);
-    const int gx = clampi(x0 - EXT + lx, 0, W - 1);
-    const float* src = seq + (size_t)(b * F + k) * 3 * HW;
-    float* dst = frames + (size_t)k * 3 * LH * LW + ly * LW + lx;
-    if (k == ref) {
-      for (int c = 0; c < 3; ++c) dst[c * LH * LW] = src[c * HW + gy * W + gx];
-      continue;
-    }
-    const float fac = (float)(k - ref);
+  // ---- load phase: the reference tile by cp.async, the others warped ----
+  for (int idx = tid; idx < 3 * LH * LW; idx += NT) {
+    const int c = idx / (LH * LW), r = idx % (LH * LW);
+    const int gy = clampi(y0 - EXT + r / LW, 0, H - 1);
+    const int gx = clampi(x0 - EXT + r % LW, 0, W - 1);
+    cp_async4(frames + (size_t)(ref * 3 + c) * LH * LW + r,
+              win + (size_t)(ref * 3 + c) * HW + (size_t)gy * W + gx);
+  }
+  cp_async_commit();
+  for (int r = tid; r < LH * LW; r += NT) {
+    const int gy = clampi(y0 - EXT + r / LW, 0, H - 1);
+    const int gx = clampi(x0 - EXT + r % LW, 0, W - 1);
     const size_t pix = (size_t)gy * W + gx;
-    const float x = __fadd_rn((float)gx, __fmul_rn(fac, fxp[pix]));
-    const float y = __fadd_rn((float)gy, __fmul_rn(fac, fyp[pix]));
-    const float xf = floorf(x), yf = floorf(y);
-    const float dx = x - xf, dy = y - yf;
-    const int xi = (int)fminf(fmaxf(xf, -1.f), (float)W);
-    const int yi = (int)fminf(fmaxf(yf, -1.f), (float)H);
-    const int xa = clampi(xi, 0, W - 1), xb = clampi(xi + 1, 0, W - 1);
-    const int ya = clampi(yi, 0, H - 1), yb = clampi(yi + 1, 0, H - 1);
-    for (int c = 0; c < 3; ++c) {
-      const float* s = src + c * HW;
-      const float top = (1.f - dx) * s[ya * W + xa] + dx * s[ya * W + xb];
-      const float bot = (1.f - dx) * s[yb * W + xa] + dx * s[yb * W + xb];
-      dst[c * LH * LW] = (1.f - dy) * top + dy * bot;
+    const float fx = fxp[pix], fy = fyp[pix];
+#pragma unroll 2
+    for (int k = 0; k < F; ++k) {
+      if (k == ref) continue;
+      const float fac = (float)(k - ref);
+      const float x = __fadd_rn((float)gx, __fmul_rn(fac, fx));
+      const float y = __fadd_rn((float)gy, __fmul_rn(fac, fy));
+      const float xf = floorf(x), yf = floorf(y);
+      const float dx = x - xf, dy = y - yf;
+      const int xi = (int)fminf(fmaxf(xf, -1.f), (float)W);
+      const int yi = (int)fminf(fmaxf(yf, -1.f), (float)H);
+      const int xa = clampi(xi, 0, W - 1), xb = clampi(xi + 1, 0, W - 1);
+      const int ya = clampi(yi, 0, H - 1), yb = clampi(yi + 1, 0, H - 1);
+      const float* src = win + (size_t)k * 3 * HW;
+      float* dst = frames + (size_t)k * 3 * LH * LW + r;
+      for (int c = 0; c < 3; ++c) {
+        const float* s = src + c * HW;
+        const float top = (1.f - dx) * s[ya * W + xa] + dx * s[ya * W + xb];
+        const float bot = (1.f - dx) * s[yb * W + xa] + dx * s[yb * W + xb];
+        dst[c * LH * LW] = (1.f - dy) * top + dy * bot;
+      }
     }
   }
+  cp_async_wait_all();
   __syncthreads();
 
   // ---- self-mask: warp-coordinate validity, occlusion gate in assembly ----
@@ -142,5 +157,15 @@ extern "C" int sf_warp_assemble(const float* seq, const float* wx,
     kern<<<grid, block, smem, st>>>(seq, wx, wy, occ, du, dv, cw, out, B, H,
                                     W, P);
     return cudaGetLastError();
+  });
+}
+
+// out[0..2] = resident blocks per SM, registers per thread, spill bytes per
+// thread of the (mode, zero_duv) variant at a window of 2 ref + 1 frames.
+extern "C" int sf_warp_assemble_occupancy(int mode, int zero_duv, int ref, int* out) {
+  if (ref < 1 || 2 * ref > MAXN) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_mode(mode, zero_duv, [&](auto m, auto z) {
+    return kernel_occupancy(warp_assemble_kernel<decltype(m)::value, decltype(z)::value>,
+                            tile_smem_bytes(2 * ref + 1), out);
   });
 }

@@ -35,22 +35,29 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # seq, wx, wy, occ, du, dv, cw, out, B, H, W, mode, zero_duv,
     # params (host), n_params, stream
     "sf_warp_assemble": [_P] * 8 + [_I] * 5 + [_P, _I, _P],
     # uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv, ndu, ndv, scratch,
-    # partials, sums, B, H, W, method, reg_fct, reg_eps_sq, reg_trunc,
+    # scratch_floats, sums, B, H, W, method, reg_fct, reg_eps_sq, reg_trunc,
     # reg_trunc_val, alpha, iterations, omega, stream
-    "sf_solve_step": [_P] * 15 + [_I] * 5 + [_F] * 4 + [_I, _F, _P],
+    "sf_solve_step": [_P] * 13 + [_L, _P] + [_I] * 5 + [_F] * 4
+                     + [_I, _F, _P],
+    # k5, B, H, W, out (8 int64: the band plan of K1 / K5)
+    "sf_solve_plan": [_I] * 4 + [_P],
     # warped, mask, du, dv, cw, out, B, H, W, mode, zero_duv,
     # params (host), n_params, stream
     "sf_fused_data": [_P] * 6 + [_I] * 5 + [_P, _I, _P],
     # src, wx, wy, out, masks, B, F, C, H, W, factors (host), identity, stream
     "sf_warp_stack": [_P] * 5 + [_I] * 5 + [_P, _I, _P],
-    # du, dv, a11, a12, a22, b1, b2, wh, wv, ndu, ndv, scratch, B, H, W,
-    # iterations, omega, stream
-    "sf_sor_coupled_rb": [_P] * 12 + [_I] * 4 + [_F, _P],
+    # mode, zero_duv, ref, out (3 int: blocks per SM, registers, spill bytes)
+    "sf_warp_assemble_occupancy": [_I] * 3 + [_P],
+    "sf_fused_data_occupancy": [_I] * 3 + [_P],
+    # du, dv, a11, a12, a22, b1, b2, wh, wv, ndu, ndv, scratch,
+    # scratch_floats, B, H, W, iterations, omega, stream
+    "sf_sor_coupled_rb": [_P] * 12 + [_L] + [_I] * 4 + [_F, _P],
 }
 
 # launches of each kernel wrapper; read and reset by callers that must show

@@ -10,6 +10,7 @@ the card, `fused_data_system_ref` in the twins.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -71,11 +72,13 @@ def fused_data_system_ref(warped, mask, du, dv, cw, p, *,
     return (e0, e1, *sys_b, *sys_f)
 
 
+@functools.lru_cache(maxsize=64)
 def kernel_params(p) -> np.ndarray:
     """Host parameter block of the assembly kernels (csrc/assemble.cuh
     `parse_params`): 15 scalars, then 14 per-offset arrays of MAXN floats.
     Products of weights are rounded to float32 as the twin's tensor ops
-    round them."""
+    round them. Cached per parameter set (the solve calls the kernels with
+    one set hundreds of times); the array is read only."""
     f32 = np.float32
     n = 2 * p.ref
     if n > MAXN:
@@ -107,8 +110,10 @@ def kernel_params(p) -> np.ndarray:
         arr([f32(2.0) * f32(r) + f32(2.0) * f32(o)
              for r, o in zip(rho_raw, om_raw)]),
     ]
-    return np.ascontiguousarray(
+    out = np.ascontiguousarray(
         np.concatenate([np.asarray(head, f32), *arrays]), f32)
+    out.setflags(write=False)   # one array serves every caller
+    return out
 
 
 def _fused_data_cuda(warped, mask, du, dv, cw, p, mode, zero_duv):

@@ -5,9 +5,14 @@ Smoothness weights + two sub_laplacian RHS adjustments + `iterations`
 red-black coupled SOR sweeps, optionally with the change sums
 (sum |ndu - du|, sum |ndv - dv|) per jet. `solve_step` dispatches on the
 tensors' device: CPU tensors go to the plain twin `solve_step_ref`, CUDA
-tensors to csrc/solve_step.cu (or an error).
+tensors to csrc/solve_step.cu (or an error): one cooperative launch per call,
+whose band plan `solve_plan` reports.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -51,6 +56,28 @@ def solve_step_ref(uu, vv, dpsis, a11, a12, a22, b1, b2, du=None, dv=None,
     return ndu, ndv, sums
 
 
+class SolvePlan(NamedTuple):
+    """How csrc/solve_step.cu cuts a [B, H, W] call into bands of rows."""
+    resident: bool      # packed arrays in shared memory (else in scratch)
+    grid: int           # blocks of the cooperative launch
+    nbands: int
+    bands_per_jet: int
+    rows: int           # rows of the tallest band
+    smem_bytes: int     # dynamic shared memory per block
+    scratch_floats: int
+    threads: int        # per block
+
+
+@functools.lru_cache(maxsize=256)
+def solve_plan(b: int, h: int, w: int, *, k5: bool = False) -> SolvePlan:
+    """The band plan of K1 (or K5) at [b, h, w] on the CUDA card (one card:
+    the plan is cached by shape)."""
+    out = (ctypes.c_longlong * 8)()
+    kernels.check(kernels.load().sf_solve_plan(int(k5), b, h, w, out),
+                  "solve_plan")
+    return SolvePlan(bool(out[0]), *out[1:])
+
+
 def _solve_step_cuda(uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv, *,
                      alpha, reg_pen, method, iterations, omega, with_change):
     dev = uu.device
@@ -69,16 +96,17 @@ def _solve_step_cuda(uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv, *,
         kernels.require_f32_cuda(name, t, (b, h, w), dev)
     ndu = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     ndv = torch.empty_like(ndu)
-    scratch = torch.empty((7, b, h, w), dtype=torch.float32, device=dev)
-    partials = torch.empty((b, 64, 2), dtype=torch.float32, device=dev)
+    n_scratch = solve_plan(b, h, w).scratch_floats
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     sums = torch.empty((b, 2), dtype=torch.float32, device=dev) \
         if with_change else None
     fct, eps_sq, trunc, trunc_val = reg_pen.kernel_args()
     lib = kernels.load()
     err = lib.sf_solve_step(
         *(kernels.ptr(t) for t in (uu, vv, dpsis, a11, a12, a22, b1, b2, du,
-                                   dv, ndu, ndv, scratch, partials, sums)),
-        b, h, w, int(method), int(fct), eps_sq, trunc, trunc_val,
+                                   dv, ndu, ndv, scratch)), n_scratch,
+        kernels.ptr(sums), b, h, w, int(method), int(fct), eps_sq, trunc,
+        trunc_val,
         float(alpha), int(iterations), float(omega), kernels.stream_ptr(dev))
     kernels.check(err, "solve_step")
     kernels.LAUNCHES["solve_step"] += 1

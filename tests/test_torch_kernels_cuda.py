@@ -1,0 +1,146 @@
+"""The one-launch K1 / K5 (csrc/solve_step.cu) and the K2 / K3 assembly
+kernels against their plain twins on the card, at the shapes that reach
+their edge cases: odd H and W, widths under one warp, a single jet, B = 16
+(K1 / K5's streaming path), 0 / 1 / 30 sweeps, with and without du / dv and
+the change sums; K2 and K3 in every mode at odd shapes and window sizes
+S = 2 and 4 (S = 1 has no offsets and no data term). Bound: 1e-4 of each
+plane's max, for nvcc's FMA contraction. Every test needs a CUDA GPU and
+skips without one.
+
+    python -m pytest tests/test_torch_kernels_cuda.py -m cuda
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from slowflow_tpu_torch.core import solver, solver_pallas, warp_shift
+from slowflow_tpu_torch.variational import (fused_data, fused_solve,
+                                            fused_warp, terms)
+from slowflow_tpu_torch.variational.params import MultiFrameParams
+
+P = MultiFrameParams(S=3, alpha=4.0, gamma=6.0, delta=1.0, rho=(1.0, 1.0),
+                     omega=(0.0, 2.0), niter_solver=30, smoothing=1)
+TOL = 1e-4
+MODES = [("assembly", False), ("assembly", True), ("occ", False),
+         ("occ", True), ("occ_assembly", True)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _rel(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def _solve_inputs(b, h, w, seed, device):
+    rng = np.random.default_rng(seed)
+    uu, vv, b1, b2 = rng.normal(0, 1, (4, b, h, w))
+    dpsis = 0.5 * rng.random((b, h, w))
+    a11, a22 = 1 + rng.random((2, b, h, w))
+    a12 = 0.3 * rng.normal(0, 1, (b, h, w))
+    du, dv = rng.normal(0, 0.1, (2, b, h, w))
+    wh, wv = 0.5 * rng.random((2, b, h, w)) + 0.05
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in (uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv, wh, wv)]
+
+
+SHAPES = [(1, 45, 70), (3, 37, 5), (2, 9, 1), (1, 1, 33), (5, 31, 63),
+          (16, 270, 480)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("iterations", [0, 1, 30])
+def test_solve_step_kernel_edge_shapes(cuda_device, shape, iterations):
+    t = _solve_inputs(*shape, 40, cuda_device)
+    _, _, reg = P.penalties()
+    for method in (0, 1, 2):
+        for given, with_change in ((False, True), (True, True),
+                                   (True, False)):
+            du, dv = (t[8], t[9]) if given else (None, None)
+            kw = dict(alpha=P.alpha, reg_pen=reg, method=method,
+                      iterations=iterations, omega=1.9,
+                      with_change=with_change)
+            got = fused_solve.solve_step(*t[:8], du, dv, **kw)
+            want = fused_solve.solve_step_ref(*t[:8], du, dv, **kw)
+            for g, w in zip(got, want):
+                assert _rel(g.cpu(), w.cpu()) <= TOL, (method, given)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("iterations", [0, 1, 30])
+def test_sor_kernel_edge_shapes(cuda_device, shape, iterations):
+    t = _solve_inputs(*shape, 41, cuda_device)
+    system = (t[8], t[9], *t[3:8], t[10], t[11])
+    before = [x.clone() for x in system]
+    got = solver_pallas.sor_coupled_rb_pallas(*system, iterations=iterations,
+                                              omega=1.9)
+    want = solver.sor_coupled_rb(*system, iterations=iterations, omega=1.9)
+    for g, w in zip(got, want):
+        assert _rel(g.cpu(), w.cpu()) <= TOL
+    for x, y in zip(system, before):
+        assert torch.equal(x, y)   # the inputs are read only
+
+
+@pytest.mark.cuda
+def test_solve_step_plans_and_repeatable_sums(cuda_device):
+    """4 x 270 x 480 fits the blocks' shared memory, 16 x 270 x 480 streams;
+    the change sums are bit-identical from run to run on both paths."""
+    assert fused_solve.solve_plan(4, 270, 480).resident
+    assert not fused_solve.solve_plan(16, 270, 480).resident
+    _, _, reg = P.penalties()
+    kw = dict(alpha=P.alpha, reg_pen=reg, method=1, iterations=30,
+              omega=1.9, with_change=True)
+    for shape in ((4, 270, 480), (16, 270, 480)):
+        t = _solve_inputs(*shape, 42, cuda_device)
+        first = fused_solve.solve_step(*t[:8], None, None, **kw)
+        again = fused_solve.solve_step(*t[:8], None, None, **kw)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def _k2_inputs(b, h, w, s, seed, device):
+    rng = np.random.default_rng(seed)
+    seq = rng.random((b, 2 * s - 1, 3, h, w)) * 255
+    flow = np.clip(rng.normal(0, 1.5, (2, b, h, w)) + 0.5, -3, 3)
+    occ = rng.integers(-1, 2, (b, h, w))
+    du, dv = rng.normal(0, 0.2, (2, b, h, w))
+    cw = 0.5 + rng.random((b, 3, h, w))
+    return [torch.tensor(a, dtype=torch.float32, device=device).contiguous()
+            for a in (seq, flow[0], flow[1], occ, du, dv, cw)]
+
+
+def _params(s):
+    return MultiFrameParams(**{**P.__dict__, "S": s,
+                               "rho": (1.0, 0.5, 0.25)[:s - 1],
+                               "omega": (0.0, 2.0, 1.0)[:s - 1]})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("shape", [(3, 131, 237), (2, 17, 9), (1, 5, 41)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_assembly_kernels_odd_shapes(cuda_device, s, shape):
+    p = _params(s)
+    seq, wx, wy, occ, du, dv, cw = _k2_inputs(*shape, s, 43, cuda_device)
+    warped, masks = warp_shift.warp_stack_ref(seq, wx, wy, p.ref)
+    raw = terms.succ_mask(masks, p.ref)
+    gated = terms.gate_masks(raw, occ, p)
+    for mode, zero_duv in MODES:
+        kw = dict(mode=mode, zero_duv=zero_duv)
+        args = (seq, wx, wy, occ, du, dv, cw, p)
+        for g, w in zip(fused_warp.warp_assemble(*args, **kw),
+                        fused_warp.warp_assemble_ref(*args, **kw)):
+            assert _rel(g.cpu(), w.cpu()) <= TOL, ("K2", mode, zero_duv)
+        args = (warped, gated if mode == "assembly" else raw, du, dv, cw, p)
+        for g, w in zip(fused_data.fused_data_system(*args, **kw),
+                        fused_data.fused_data_system_ref(*args, **kw)):
+            assert _rel(g.cpu(), w.cpu()) <= TOL, ("K3", mode, zero_duv)
