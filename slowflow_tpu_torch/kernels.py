@@ -8,8 +8,9 @@ edited kernel is rebuilt and an unchanged one is reused; ptxas's register
 and spill report of the build is kept beside it (`ptxas.log`). Nothing here
 runs at import time. A failed build or a failed launch raises.
 
-Every entry point takes raw device pointers and the current CUDA stream as
-`c_void_p` and returns `cudaGetLastError()` of its launches.
+Every launching entry point takes raw device pointers and the current CUDA
+stream as `c_void_p` and returns the `cudaError_t` of its launch; the plan
+and occupancy entries fill a host array and return a `cudaError_t` too.
 """
 from __future__ import annotations
 
