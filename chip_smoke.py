@@ -254,14 +254,16 @@ def _kernel_events(prof):
             and not ev.name.startswith(("Memcpy", "Memset"))]
 
 
-def _one_call_profile(fn, attempts: int = 3) -> dict:
+def _one_call_profile(fn, attempts: int = 10) -> dict:
     """CUDA kernel launches and device time of one call of `fn`. The
-    profiler now and then delivers no kernel record for a call that ran (its
-    result was checked); such a capture is taken again, at most `attempts`
-    times in all."""
+    profiler now and then delivers no kernel record for a call that ran,
+    sometimes for several captures in a row, so one capture proves nothing:
+    captures are taken until two agree on a nonzero kernel count, at most
+    `attempts`, with a growing pause after each that does not."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    counts = []
     for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -269,9 +271,13 @@ def _one_call_profile(fn, attempts: int = 3) -> dict:
             fn()
             torch.cuda.synchronize()
         evs = _kernel_events(prof)
-        if evs:
+        agreed = bool(evs) and len(evs) in counts
+        counts.append(len(evs))
+        if agreed:
             break
-    return dict(launches_per_call=len(evs), profile_attempts=attempt,
+        if attempt > 1:
+            time.sleep(0.1 * attempt)
+    return dict(launches_per_call=len(evs), profile_counts=counts,
                 device_ms=sum(ev.time_range.elapsed_us() for ev in evs) / 1e3,
                 kernel_names=sorted({ev.name[:80] for ev in evs}))
 
@@ -340,6 +346,8 @@ def _compare(name, entry_key, kern, twin, what, work=None, library_ms=None):
         entry)
     extra = f", bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})" \
         if work else ""
+    if len(entry["profile_counts"]) > 2:
+        extra += f", profiler kernel counts {entry['profile_counts']}"
     check(worst <= REL_TOL,
           f"{what}: rel err {worst:.2e} (per plane: "
           + " ".join(f"{e[0]:.1e}" for e in errs)
