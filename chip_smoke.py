@@ -16,10 +16,11 @@ Phases (any failure makes the script exit non-zero without the final line):
      K3 on K4's stack against K2; K1 and K5 also on their streaming path
      (B=16 at 270x480) and at odd shapes, K2 at an odd shape; relative
      error, time (CUDA events), the least time the card could take for the
-     same work (bound), the time of grid_sample on K4's and K6's planes, and
-     each wrapper's CUDA launches and device time in one call under
-     torch.profiler; K1 / K5's band plans and K2 / K3's registers, spills
-     and resident blocks per SM;
+     same work (bound), the time of grid_sample on K4's and K6's planes (K4
+     and K6's entry must not take more device time than it at the bench
+     shape), and each wrapper's CUDA launches and device time in one call
+     under torch.profiler; K1 / K5's band plans and K2 / K3 / K4's
+     registers, spills and resident blocks per SM (K2 and K3 need 2);
   3. the slice: variational_mt_batched at the bench configuration (bench
      scene of slowflow_tpu_torch/bench_scene.py, 5 levels, 10 alternations x 10 outer x 30 SOR sweeps, occlusion
      reasoning, batch 4) on the merged route and on the stack route with the
@@ -34,7 +35,8 @@ Phases (any failure makes the script exit non-zero without the final line):
      once with the default route and once with the cfg keys
      slow_flow_merge_warp 0, slow_flow_fused_solve 0, slow_flow_pallas_sor 1
      (launch counts must show the stack route and the composed solve).
-Prints a JSON line with one entry per kernel, then
+Prints a JSON line with one entry per kernel (K3's also with its other
+modes' times at the bench shape), then
 {"ok": true, "device": {...}} as the last line. A detailed record goes to
 chiprun_out/chip_smoke.json.
 
@@ -225,10 +227,12 @@ def _work_warp(b, f, h, w, warped_frames):
                  b * hw * warped_frames * WARP_OPS)
 
 
-def _grid_sample_ms(seq, wx, wy, factors):
+def _grid_sample(seq, wx, wy, factors) -> dict:
     """One torch.nn.functional.grid_sample call on the same planes (bilinear,
     border padding, align_corners): a yardstick that clamps the coordinate
-    rather than each corner and computes no mask."""
+    rather than each corner and computes no mask. Its time by CUDA events
+    (library_ms) and its device time under the profiler
+    (library_device_ms)."""
     import torch
     import torch.nn.functional as F
 
@@ -240,9 +244,12 @@ def _grid_sample_ms(seq, wx, wy, factors):
     grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1],
                        -1).view(b * f, h, w, 2)
     inp = seq.reshape(b * f, c, h, w)
-    return cuda_ms(lambda: F.grid_sample(inp, grid, mode="bilinear",
-                                         padding_mode="border",
-                                         align_corners=True))
+
+    def call():
+        return F.grid_sample(inp, grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+    return dict(library_ms=cuda_ms(call),
+                library_device_ms=_one_call_profile(call)["device_ms"])
 
 
 def _kernel_events(prof):
@@ -327,11 +334,11 @@ def _k1_inputs(b, h, w, seed, device):
             for a in (uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv)]
 
 
-def _compare(name, entry_key, kern, twin, what, work=None, library_ms=None):
+def _compare(name, entry_key, kern, twin, what, work=None, library=None):
     """Run kernel and twin once on the same inputs, record the worst
     per-plane relative / absolute error, both times, the bound of `work`,
-    the library call's time, and the kernel's launches and device time in
-    one call."""
+    the library call's times (`_grid_sample`), and the kernel's launches
+    and device time in one call."""
     import torch
 
     got, want = kern(), twin()
@@ -340,12 +347,15 @@ def _compare(name, entry_key, kern, twin, what, work=None, library_ms=None):
     worst = max(e[0] for e in errs)
     entry = dict(entry_key, rel_err=worst, abs_err=max(e[1] for e in errs),
                  ms=cuda_ms(kern), plain_ms=cuda_ms(twin, 2),
-                 library_ms=library_ms, **(work or {}),
+                 **(library or dict(library_ms=None)), **(work or {}),
                  **_one_call_profile(kern))
     RECORD.setdefault("kernels_vs_twins", {}).setdefault(name, []).append(
         entry)
     extra = f", bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})" \
         if work else ""
+    if library:
+        extra += (f", grid_sample {entry['library_ms']:.3f} ms, device "
+                  f"{entry['library_device_ms']:.4f} ms")
     if len(entry["profile_counts"]) > 2:
         extra += f", profiler kernel counts {entry['profile_counts']}"
     check(worst <= REL_TOL,
@@ -384,8 +394,14 @@ def kernels_vs_twins():
                 int(zero_duv), p.ref, res), fn)
             RECORD.setdefault("resources", {})[
                 f"{name} {mode} zero_duv={zero_duv}"] = list(res)
+            check(res[0] >= 2, f"{name} {mode} zero_duv={zero_duv}: "
+                  f"{res[0]} resident blocks per SM (at least 2)")
             print(f"{name} {mode:12s} zero_duv={zero_duv!s:5}: {res[0]} "
                   f"blocks/SM, {res[1]} registers, {res[2]} B spilled")
+    kernels.check(lib.sf_warp_stack_occupancy(res), "sf_warp_stack_occupancy")
+    RECORD["resources"]["K4 / K6 warp_stack"] = list(res)
+    print(f"K4 / K6 warp_stack: {res[0]} blocks/SM, {res[1]} registers, "
+          f"{res[2]} B spilled")
     for shape in ((4, 270, 480), (4, 176, 314), (16, 270, 480)):
         for k5 in (False, True):
             plan = fused_solve.solve_plan(*shape, k5=k5)
@@ -476,7 +492,7 @@ def route_kernels_vs_twins():
                      lambda: warp_shift.warp_stack_ref(seq, fx, fy, p.ref),
                      f"K4 warp_stack {motion:5s} {h}x{w}",
                      work=_work_warp(4, f, h, w, f - 1),
-                     library_ms=_grid_sample_ms(seq, fx, fy, k4_factors))
+                     library=_grid_sample(seq, fx, fy, k4_factors))
 
         factors = (-2.0, -1.0, 0.0, 1.0, 2.0)
         _compare("warp_stack_pallas", dict(shape=shape, factors=factors),
@@ -485,7 +501,7 @@ def route_kernels_vs_twins():
                                                            factors),
                  f"K6 warp_stack_pallas factors -2..2 {h}x{w}",
                  work=_work_warp(4, len(factors), h, w, len(factors)),
-                 library_ms=_grid_sample_ms(seq, wx, wy, factors))
+                 library=_grid_sample(seq, wx, wy, factors))
 
         # K3 on K4's stack (succ_mask, gated for assembly) against K2
         kwarped, kmasks = warp_shift.warp_stack(seq, wx, wy, p.ref)
@@ -499,6 +515,18 @@ def route_kernels_vs_twins():
                      lambda: fused_warp.warp_assemble(
                          seq, wx, wy, occ, du, dv, cw, p, mode=mode),
                      f"K3 on K4's stack vs K2 {mode:8s} {h}x{w}")
+
+    # K4 and K6's entry against grid_sample on the same planes, at the bench
+    # shape, by device time (the CUDA-event time of a ~0.03 ms kernel
+    # includes its wrapper's host time)
+    for name in ("warp_stack", "warp_stack_pallas"):
+        for r in RECORD["kernels_vs_twins"][name]:
+            if r["shape"] == [4, 270, 480]:
+                check(r["device_ms"] <= r["library_device_ms"],
+                      f"{name} {r.get('motion', r.get('factors'))}: device "
+                      f"{r['device_ms']:.4f} ms <= grid_sample's "
+                      f"{r['library_device_ms']:.4f} ms (CUDA events "
+                      f"{r['ms']:.4f} vs {r['library_ms']:.4f} ms)")
 
     for (b, h, w) in ((4, 270, 480), (4, 176, 314), (16, 270, 480)):
         t = _k1_inputs(b, h, w, 2, dev)
@@ -804,7 +832,7 @@ def main() -> int:
                 "max_abs_err": max((r["abs_err"] for r in rows), default=None),
                 **{k: main.get(k) for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "launches_per_call", "device_ms")}}
+                    "library_device_ms", "launches_per_call", "device_ms")}}
 
     csrc = "slowflow_tpu_torch/csrc/"
     line = {"kernels": [
@@ -824,9 +852,14 @@ def main() -> int:
                      "slowflow_tpu/core/solver_pallas.py:126", "stack",
                      lambda r: True),
         kernel_entry("warp_stack_pallas", csrc + "warp_stack.cu",
-                     "slowflow_tpu/core/warp_pallas.py:27", "unfused",
+                     "slowflow_tpu/core/warp_pallas.py:138", "unfused",
                      lambda r: True),
     ]}
+    # K3's other modes at the bench shape
+    line["kernels"][2]["modes"] = {
+        f"{r['mode']} zero_duv={r['zero_duv']}": dict(
+            ms=r["ms"], device_ms=r["device_ms"], bound_ms=r["bound_ms"])
+        for r in kv.get("fused_data", []) if r["shape"] == bench_shape}
     for entry in line["kernels"]:
         check(entry["launches"] > 0 and entry["ms"] is not None
               and entry["bound_ms"] is not None,

@@ -10,10 +10,14 @@ example `git archive HEAD | tar -x -C _archive/parent`, a directory that
 parent, so drift on the card falls on both alike. Each run's record
 (chip_smoke.json in its tree's output directory, chip_smoke.OUT_DIR) is
 copied to OUT_DIR/ab/<n>_<tag>.json beside its output, and one line per run is
-printed: K1 (method 1, from zero, with sums) and K2 (`assembly`, zero_duv)
-at 4x270x480 by CUDA events, the merged and stack slices' wall time per
-batch of 4 and the merged slice's device idle share (profiled device busy
-time over the unprofiled wall time). Exits non-zero if a run fails.
+printed: at 4x270x480, K1 (method 1, from zero, with sums), K2 (`assembly`
+zero_duv, `occ_assembly`), K3 (each mode, with its device time), K4 (bench
+flow and 20 px), K5 and K6's entry by CUDA events, K4 / K6 also by device
+time beside grid_sample's on the same planes; the merged and stack slices'
+wall time per batch of 4, the merged slice's device idle share (profiled
+device busy time over the unprofiled wall time), the stack slice's device
+busy time and its K3 / K4 device time per slice, and both routes'
+flow_recovery_err_px. Exits non-zero if a run fails.
 
 With --slice, each turn is a fresh process that imports that tree's
 slowflow_tpu_torch, solves the merged-route slice of chip_smoke.py (bench
@@ -50,27 +54,57 @@ def _row(record, name, **match):
     return {}
 
 
+def _family_ms(profile, name) -> float | None:
+    """Device ms per slice of the kernels whose name contains `name`, from
+    a route profile's top kernels."""
+    top = profile.get("top_kernels_ms")
+    return None if top is None else sum(ms for n, ms in top if name in n)
+
+
 def summary(record) -> dict:
     slices = record.get("slices", {})
-    prof = record.get("profiles", {}).get("merged", {})
+    profiles = record.get("profiles", {})
+    prof = profiles.get("merged", {})
     wall = slices.get("merged", {}).get("kernel_wall_s")
     busy = prof.get("device_busy_ms")
+    k3 = {f"k3_{mode}{'_zero_duv' if z else ''}": _row(
+        record, "fused_data", mode=mode, zero_duv=z)
+        for mode, z in (("assembly", True), ("assembly", False),
+                        ("occ", True), ("occ_assembly", True))}
+    k4 = _row(record, "warp_stack", motion="bench")
+    k4_20 = _row(record, "warp_stack", motion="20px")
+    k6 = _row(record, "warp_stack_pallas")
     return {
         "k1_ms": _row(record, "solve_step", method=1, zero_init=True).get("ms"),
         "k2_assembly_zero_duv_ms": _row(record, "warp_assemble",
                                         mode="assembly", zero_duv=True).get("ms"),
         "k2_occ_assembly_ms": _row(record, "warp_assemble",
                                    mode="occ_assembly").get("ms"),
-        "k3_assembly_zero_duv_ms": _row(record, "fused_data", mode="assembly",
-                                        zero_duv=True).get("ms"),
+        **{f"{k}_ms": r.get("ms") for k, r in k3.items()},
+        **{f"{k}_device_ms": r.get("device_ms") for k, r in k3.items()},
+        "k4_ms": k4.get("ms"), "k4_device_ms": k4.get("device_ms"),
+        "k4_grid_sample_ms": k4.get("library_ms"),
+        "k4_grid_sample_device_ms": k4.get("library_device_ms"),
+        "k4_20px_ms": k4_20.get("ms"), "k4_20px_device_ms": k4_20.get("device_ms"),
+        "k4_20px_grid_sample_device_ms": k4_20.get("library_device_ms"),
+        "k6_ms": k6.get("ms"), "k6_device_ms": k6.get("device_ms"),
+        "k6_grid_sample_ms": k6.get("library_ms"),
+        "k6_grid_sample_device_ms": k6.get("library_device_ms"),
         "k5_ms": _row(record, "sor").get("ms"),
         "merged_wall_s": wall,
         "stack_wall_s": slices.get("stack", {}).get("kernel_wall_s"),
         "merged_device_busy_ms": busy,
         "merged_idle_share": None if not (wall and busy)
         else 1 - busy / (wall * 1e3),
+        "stack_device_busy_ms": profiles.get("stack", {}).get("device_busy_ms"),
+        "stack_k3_ms_per_slice": _family_ms(profiles.get("stack", {}),
+                                            "fused_data_kernel"),
+        "stack_k4_ms_per_slice": _family_ms(profiles.get("stack", {}),
+                                            "warp_stack_kernel"),
         "merged_flow_recovery_err_px":
             slices.get("merged", {}).get("flow_recovery_err_px"),
+        "stack_flow_recovery_err_px":
+            slices.get("stack", {}).get("flow_recovery_err_px"),
     }
 
 

@@ -1,7 +1,7 @@
 """slow_flow CLI, stage 2: per-jet multi-frame flow estimation on PyTorch.
 
     python -m slowflow_tpu_torch.cli.slow_flow <cfg> [-overwrite] [-resume]
-        [-fr K] [-jet J] [-batch B] [-device cuda|cpu]
+        [-fr K] [-jet J] [-batch B] [-device cuda|cpu (default: cuda)]
 
 Same contract as `python -m slowflow_tpu.cli.slow_flow`: reads the
 tab-separated cfg, `adaptiveFR.dat` and `<sequence>/quantil.dat`, derives the
@@ -13,8 +13,9 @@ time as one batched call.
 
 Only `deep_matching 0` (the solve starts from zero flow) is ported so far;
 `deep_matching 1` needs the EPIC initialization, which raises here.
-`-device` defaults to CUDA when a GPU exists; asking for CUDA without one
-raises. `-threads` and `-deep_settings` are accepted and ignored.
+`-device` defaults to CUDA and raises when torch finds no GPU; `-device cpu`
+runs the kernels' plain PyTorch twins on the CPU. `-threads` and
+`-deep_settings` are accepted and ignored.
 """
 from __future__ import annotations
 

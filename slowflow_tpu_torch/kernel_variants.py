@@ -1,4 +1,4 @@
-"""Where the time of K1 and K2 goes: textual variants of their sources, built
+"""Where the time of K1-K4 goes: textual variants of their sources, built
 and timed beside the real kernels on one card.
 
     python3 -m slowflow_tpu_torch.kernel_variants
@@ -20,6 +20,20 @@ half-sweep and t0 the prologue, epilogue and launch:
 K2 (`assembly`, zero_duv, 4 x 270 x 480):
   kernel        csrc/warp_assemble.cu as built
   load_only     the load phase (warp into shared memory) and one store
+K3 (`assembly` zero_duv, `occ`, `occ_assembly`; 4 x 270 x 480, S = 3):
+  kernel        csrc/fused_data.cu as built
+  load_only     the frames' cp.async stream and the stores, no derivative
+                tiles and no assembly (results wrong)
+  no_derivs     no Ix / Iy tile pass per offset; the assembly reads stale
+                shared memory (results wrong: isolates the tile pass)
+K4 (4 x 5 x 3 x 270 x 480, bench-like flow: frame ref copied, with and
+without the masks) and K6's entry (every frame warped), beside grid_sample
+on K6's planes:
+  kernel            csrc/warp_stack.cu as built (1 pixel a thread, 8 x 32
+                    tiles, three channels unrolled)
+  pix2, pix4_ty4    2 pixels a thread (8 x 64 tiles); 4 (4 x 128 tiles)
+  runtime_channels  the channel count as a runtime loop bound (K6's
+                    warp_bilinear entry with C != 3)
 Prints one JSON line per measurement and writes kernel_variants.json to
 chip_smoke.py's output directory.
 """
@@ -46,6 +60,10 @@ K2_ASSEMBLE = """  assemble_tile<MODE, ZERO_DUV>(P, frames, sx, sy, cw, du, dv, 
                                 W, x0, y0, mask_of);"""
 K2_STORE = """  if (gx < W && gy < H)
     out[b * HW + (size_t)gy * W + gx] = frames[(threadIdx.y + EXT) * LW + threadIdx.x + EXT];"""
+K3_BUILD = """            build_pair(pairs + pair * PAIR_FLOATS, slot(frame_a(s, pair)),
+                       slot(frame_b(s, pair)), tid);"""
+K3_OFFSET = """      offset(s);\n"""
+K4_CHANNELS = "return (int)(C == 3 ? launch<3>("
 
 # source built -> variant -> file -> {old: new}
 VARIANTS = {
@@ -63,7 +81,21 @@ VARIANTS = {
     "warp_assemble.cu": {
         "load_only": {"warp_assemble.cu": {K2_ASSEMBLE: K2_STORE}},
     },
+    "fused_data.cu": {
+        "load_only": {"fused_data.cu": {K3_BUILD: ";", K3_OFFSET: ""}},
+        "no_derivs": {"fused_data.cu": {K3_BUILD: ";"}},
+    },
+    "warp_stack.cu": {
+        "pix2": {"warp_stack.cu": {"constexpr int PIX = 1;":
+                                   "constexpr int PIX = 2;"}},
+        "pix4_ty4": {"warp_stack.cu": {
+            "constexpr int PIX = 1;": "constexpr int PIX = 4;",
+            "TX = 32, TY = 8,": "TX = 32, TY = 4,"}},
+        "runtime_channels": {"warp_stack.cu": {
+            K4_CHANNELS: K4_CHANNELS.replace("C == 3", "false")}},
+    },
 }
+K3_MODES = (("assembly", True), ("occ", True), ("occ_assembly", True))
 K1_SHAPES = ((4, 270, 480), (4, 176, 314), (4, 51, 90))
 
 
@@ -93,14 +125,14 @@ def build_variants() -> dict:
                 [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", str(so),
                  str(d / src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True))
-    libs = {("solve_step.cu", "kernel"): kernels.load(),
-            ("warp_assemble.cu", "kernel"): kernels.load()}
+    libs = {(src, "kernel"): kernels.load() for src in VARIANTS}
     for key, (so, proc) in jobs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{err}")
         lib = ctypes.CDLL(str(so))
-        for fn in ("sf_solve_step", "sf_solve_plan", "sf_warp_assemble"):
+        for fn in ("sf_solve_step", "sf_solve_plan", "sf_warp_assemble",
+                   "sf_fused_data", "sf_warp_stack"):
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = kernels._SIGNATURES[fn]
                 getattr(lib, fn).restype = ctypes.c_int
@@ -108,18 +140,26 @@ def build_variants() -> dict:
     return libs
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, attempts: int = 5) -> float:
+    """Mean device time of `fn` over `reps` calls. A profiler capture now
+    and then holds no kernel record (chip_smoke._one_call_profile), so a
+    capture without `reps` launches is taken again, at most `attempts`
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(evs) >= reps:
+            return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
+    raise RuntimeError(f"the profiler saw {len(evs)} kernels for {reps} "
+                       f"calls in each of {attempts} captures")
 
 
 def _k1(lib, b, h, w, iterations, dev):
@@ -148,12 +188,10 @@ def _k1(lib, b, h, w, iterations, dev):
     return device_ms(call)
 
 
-def _k2(lib, dev):
-    from .variational.fused_data import kernel_params
-    from .variational.params import MultiFrameParams
-
+def _window(dev):
+    """The bench-shape window (4 x 5 x 3 x 270 x 480) and a bench-like
+    flow, from a seed."""
     b, h, w = 4, 270, 480
-    p = MultiFrameParams(S=3, rho=(1.0, 1.0), omega=(0.0, 2.0))
     rng = np.random.default_rng(0)
     seq = torch.tensor(rng.random((b, 5, 3, h, w)) * 255,
                        dtype=torch.float32, device=dev)
@@ -162,9 +200,23 @@ def _k2(lib, dev):
               for m in (1.0, -0.5))
     occ = torch.tensor(rng.integers(-1, 2, (b, h, w)), dtype=torch.float32,
                        device=dev)
+    return seq, wx, wy, occ
+
+
+def _bench_params():
+    from .variational.params import MultiFrameParams
+
+    return MultiFrameParams(S=3, rho=(1.0, 1.0), omega=(0.0, 2.0))
+
+
+def _k2(lib, dev):
+    from .variational.fused_data import kernel_params
+
+    seq, wx, wy, occ = _window(dev)
+    b, _, _, h, w = seq.shape
     cw = torch.ones((b, 3, h, w), device=dev)
     out = torch.empty((5, b, h, w), device=dev)
-    params = kernel_params(p)
+    params = kernel_params(_bench_params())
     ptr, stream = kernels.ptr, kernels.stream_ptr(dev)
 
     def call():
@@ -173,6 +225,63 @@ def _k2(lib, dev):
             ptr(out), b, h, w, 0, 1, ctypes.c_void_p(params.ctypes.data),
             params.size, stream), "sf_warp_assemble")
     return device_ms(call)
+
+
+def _k3(lib, dev, mode):
+    """K3 on K4's stack of the bench window; `mode` with zero_duv."""
+    from .core.warp_shift import warp_stack
+    from .variational import terms
+    from .variational.fused_data import MODES, kernel_params
+
+    p = _bench_params()
+    seq, wx, wy, occ = _window(dev)
+    b, _, _, h, w = seq.shape
+    warped, masks = warp_stack(seq, wx, wy, p.ref)
+    mask = terms.succ_mask(masks, p.ref)
+    if mode == "assembly":
+        mask = terms.gate_masks(mask, occ, p)
+    mask = mask.contiguous()
+    cw = torch.ones((b, 3, h, w), device=dev)
+    mode_id, n_out = MODES[mode]
+    out = torch.empty((n_out, b, h, w), device=dev)
+    params = kernel_params(p)
+    ptr, stream = kernels.ptr, kernels.stream_ptr(dev)
+
+    def call():
+        kernels.check(lib.sf_fused_data(
+            ptr(warped), ptr(mask), None, None, ptr(cw), ptr(out), b, h, w,
+            mode_id, 1, ctypes.c_void_p(params.ctypes.data), params.size,
+            stream), "sf_fused_data")
+    return device_ms(call)
+
+
+def _k4(lib, dev, with_mask, identity):
+    """K4 (identity = ref) or K6's entry (identity = -1, every frame
+    warped) on the bench window, factors k - ref."""
+    seq, wx, wy, _ = _window(dev)
+    b, f, c, h, w = seq.shape
+    out = torch.empty_like(seq)
+    masks = torch.empty((b, f, h, w), device=dev) if with_mask else None
+    fac = np.arange(f, dtype=np.float32) - f // 2
+    ptr, stream = kernels.ptr, kernels.stream_ptr(dev)
+
+    def call():
+        kernels.check(lib.sf_warp_stack(
+            ptr(seq), ptr(wx), ptr(wy), ptr(out), ptr(masks), b, f, c, h, w,
+            ctypes.c_void_p(fac.ctypes.data), identity, stream),
+            "sf_warp_stack")
+    return device_ms(call)
+
+
+def _grid_sample(dev) -> float:
+    """grid_sample's device time on the bench window, every frame warped
+    (chip_smoke's yardstick)."""
+    from chip_smoke import _grid_sample as yardstick
+
+    seq, wx, wy, _ = _window(dev)
+    f = seq.shape[1]
+    return yardstick(seq, wx, wy,
+                     [float(k - f // 2) for k in range(f)])["library_device_ms"]
 
 
 def main() -> int:
@@ -186,18 +295,35 @@ def main() -> int:
     print(card, flush=True)
     libs = build_variants()
     rows = []
+    bench = (4, 270, 480)
     for (src, name), lib in sorted(libs.items()):
+        new = []
         if src == "solve_step.cu":
             for shape in K1_SHAPES:
                 t0, t30 = (_k1(lib, *shape, it, dev) for it in (0, 30))
-                rows.append(dict(kernel="K1", variant=name, shape=shape,
-                                 ms_0_sweeps=t0, ms_30_sweeps=t30,
-                                 us_per_half_sweep=(t30 - t0) / 60 * 1e3))
+                new.append(dict(kernel="K1", variant=name, shape=shape,
+                                ms_0_sweeps=t0, ms_30_sweeps=t30,
+                                us_per_half_sweep=(t30 - t0) / 60 * 1e3))
+        elif src == "warp_assemble.cu":
+            new.append(dict(kernel="K2 assembly zero_duv", variant=name,
+                            shape=bench, ms=_k2(lib, dev)))
+        elif src == "fused_data.cu":
+            new += [dict(kernel=f"K3 {mode} zero_duv={zero_duv}",
+                         variant=name, shape=bench, ms=_k3(lib, dev, mode))
+                    for mode, zero_duv in K3_MODES]
         else:
-            rows.append(dict(kernel="K2 assembly zero_duv", variant=name,
-                             shape=(4, 270, 480), ms=_k2(lib, dev)))
-        print(json.dumps(rows[-3 if src == "solve_step.cu" else -1:]),
-              flush=True)
+            window = (4, 5, 3, 270, 480)
+            new += [dict(kernel=kernel, variant=name, shape=window,
+                         ms=_k4(lib, dev, with_mask, identity))
+                    for kernel, with_mask, identity in (
+                        ("K4", True, 2), ("K4 no_mask", False, 2),
+                        ("K6 factors -2..2", True, -1))]
+            if name == "kernel":
+                new.append(dict(kernel="grid_sample (K6's planes)",
+                                variant="library", shape=window,
+                                ms=_grid_sample(dev)))
+        rows += new
+        print(json.dumps(new), flush=True)
     from .ab_smoke import _out_dir
 
     out = _out_dir()

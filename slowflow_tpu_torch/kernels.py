@@ -56,6 +56,8 @@ _SIGNATURES = {
     # mode, zero_duv, ref, out (3 int: blocks per SM, registers, spill bytes)
     "sf_warp_assemble_occupancy": [_I] * 3 + [_P],
     "sf_fused_data_occupancy": [_I] * 3 + [_P],
+    # out (3 int: blocks per SM, registers, spill bytes)
+    "sf_warp_stack_occupancy": [_P],
     # du, dv, a11, a12, a22, b1, b2, wh, wv, ndu, ndv, scratch,
     # scratch_floats, B, H, W, iterations, omega, stream
     "sf_sor_coupled_rb": [_P] * 12 + [_L] + [_I] * 4 + [_F, _P],

@@ -1,19 +1,20 @@
-"""Device selection. A CUDA path that finds no GPU raises; nothing falls back
-to the CPU behind the caller's back."""
+"""Device selection. The port's entry points run on the card unless the
+caller asks for the CPU; a CUDA path that finds no GPU raises, and nothing
+falls back to the CPU behind the caller's back."""
 from __future__ import annotations
 
 import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """`None` means CUDA when a GPU exists, else the CPU. An explicit CUDA
-    device without a GPU raises."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    """`None` means CUDA. Only an explicit CPU device gives the CPU (where
+    the kernels' plain twins run); a CUDA device without a GPU raises."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("a CUDA device was requested but torch finds no GPU "
-                           f"(torch {torch.__version__})")
+        raise RuntimeError("a CUDA device was requested (the default) but "
+                           f"torch finds no GPU (torch {torch.__version__}); "
+                           "pass device='cpu' (the CLI: -device cpu) to run "
+                           "the plain PyTorch twins on the CPU")
     return device
 
 

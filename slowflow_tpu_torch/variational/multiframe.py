@@ -271,8 +271,9 @@ def variational_mt_batched(wx, wy, seq, p: MultiFrameParams, channel_w=None,
 
     wx, wy [B, H, W]; seq [B, 2ref+1, 3, H, W] normalized windows (numpy
     arrays or tensors); channel_w [B, 3, H, W]; norm_avg / norm_std [B, 3].
-    `device`: None = the device of `seq` if it is a tensor, else CUDA when a
-    GPU exists, else the CPU. Returns (wx, wy, occlusions) [B, H, W]
+    `device`: None = the device of `seq` if it is a tensor, else CUDA (which
+    raises when torch finds no GPU); the CPU only when asked for, by
+    `device="cpu"` or CPU tensors. Returns (wx, wy, occlusions) [B, H, W]
     tensors on that device."""
     if device is None and isinstance(seq, torch.Tensor):
         device = seq.device

@@ -1,11 +1,14 @@
-"""The one-launch K1 / K5 (csrc/solve_step.cu) and the K2 / K3 assembly
-kernels against their plain twins on the card, at the shapes that reach
-their edge cases: odd H and W, widths under one warp, a single jet, B = 16
-(K1 / K5's streaming path), 0 / 1 / 30 sweeps, with and without du / dv and
-the change sums; K2 and K3 in every mode at odd shapes and window sizes
-S = 2 and 4 (S = 1 has no offsets and no data term). Bound: 1e-4 of each
-plane's max, for nvcc's FMA contraction. Every test needs a CUDA GPU and
-skips without one.
+"""The one-launch K1 / K5 (csrc/solve_step.cu), the K2 / K3 assembly
+kernels and the K4 / K6 warp kernel against their plain twins on the card,
+at the shapes that reach their edge cases: odd H and W, widths under one
+warp, a single jet, B = 16 (K1 / K5's streaming path), 0 / 1 / 30 sweeps,
+with and without du / dv and the change sums; K2 and K3 in every mode at
+odd shapes and window sizes S = 2 and 4 (S = 1 has no offsets and no data
+term), K3's tiles at every image edge and on K4's stack against K2; K4 and
+K6's entry at W < 4 and W not a multiple of 4, B = 1, F = 16, the identity
+frame copied or warped, flows of 0.3 px, 20 px and far outside the image.
+Bound: 1e-4 of each plane's max, for nvcc's FMA contraction; the warp is
+bit-equal. Every test needs a CUDA GPU and skips without one.
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 """
@@ -15,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from slowflow_tpu_torch.core import solver, solver_pallas, warp_shift
+from slowflow_tpu_torch.core import (solver, solver_pallas, warp_pallas,
+                                     warp_shift)
 from slowflow_tpu_torch.variational import (fused_data, fused_solve,
                                             fused_warp, terms)
 from slowflow_tpu_torch.variational.params import MultiFrameParams
@@ -144,3 +148,98 @@ def test_assembly_kernels_odd_shapes(cuda_device, s, shape):
         for g, w in zip(fused_data.fused_data_system(*args, **kw),
                         fused_data.fused_data_system_ref(*args, **kw)):
             assert _rel(g.cpu(), w.cpu()) <= TOL, ("K3", mode, zero_duv)
+
+
+# K3's tiles at every image edge: 40 x 100 has rows 16-byte aligned (W % 4
+# == 0), so interior tiles take 16-byte copies and the left / right edge
+# tiles the clamped 4-byte ones; 37 x 70 and 50 x 33 are unaligned; 3 x 64
+# is shorter than the halo.
+EDGE_SHAPES = [(2, 40, 100), (1, 37, 70), (1, 3, 64), (1, 50, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("shape", EDGE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_data_kernel_tiles_at_every_edge(cuda_device, s, shape):
+    p = _params(s)
+    seq, wx, wy, occ, du, dv, cw = _k2_inputs(*shape, s, 44, cuda_device)
+    warped, masks = warp_shift.warp_stack_ref(seq, wx, wy, p.ref)
+    raw = terms.succ_mask(masks, p.ref)
+    gated = terms.gate_masks(raw, occ, p)
+    for mode, zero_duv in MODES:
+        kw = dict(mode=mode, zero_duv=zero_duv)
+        args = (warped, gated if mode == "assembly" else raw, du, dv, cw, p)
+        for g, w in zip(fused_data.fused_data_system(*args, **kw),
+                        fused_data.fused_data_system_ref(*args, **kw)):
+            assert _rel(g.cpu(), w.cpu()) <= TOL, (mode, zero_duv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("shape", [(3, 131, 237), (2, 40, 100), (1, 5, 41)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_stack_kernels_match_merged_kernel_odd_shapes(cuda_device, s, shape):
+    """K3 on K4's stack (succ_mask, gated in assembly mode) against K2."""
+    p = _params(s)
+    seq, wx, wy, occ, du, dv, cw = _k2_inputs(*shape, s, 45, cuda_device)
+    warped, masks = warp_shift.warp_stack(seq, wx, wy, p.ref)
+    raw = terms.succ_mask(masks, p.ref)
+    for mode in ("assembly", "occ"):
+        mask = terms.gate_masks(raw, occ, p) if mode == "assembly" else raw
+        got = fused_data.fused_data_system(warped, mask, du, dv, cw, p,
+                                           mode=mode)
+        want = fused_warp.warp_assemble(seq, wx, wy, occ, du, dv, cw, p,
+                                        mode=mode)
+        for g, w in zip(got, want):
+            assert _rel(g.cpu(), w.cpu()) <= TOL, mode
+
+
+# K4 / K6's entry: W under and not a multiple of the kernel's vector width,
+# W % 4 == 0 across two column tiles, one channel, B = 1, F = 16.
+WARP_SHAPES = [(1, 16, 3, 19, 37), (1, 5, 3, 23, 3), (2, 5, 3, 40, 132),
+               (3, 3, 1, 7, 1)]
+MOTIONS = {"0.3px": 0.3, "20px": 20.0, "outside": 5000.0}
+
+
+def _warp_inputs(b, f, c, h, w, motion, seed, device):
+    rng = np.random.default_rng(seed)
+    seq = rng.random((b, f, c, h, w)) * 255
+    wx = MOTIONS[motion] * rng.choice([-1, 1], (b, h, w)) \
+        * (1 + 0.1 * rng.random((b, h, w)))
+    wy = MOTIONS[motion] * rng.uniform(-1, 1, (b, h, w))
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in (seq, wx, wy)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("identity", ["ref", "none"])
+@pytest.mark.parametrize("motion", list(MOTIONS))
+@pytest.mark.parametrize("shape", WARP_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_warp_stack_kernel_bit_equal(cuda_device, shape, motion, identity):
+    """K4's entry (frame ref copied) and K6's (every frame warped, any
+    factors) equal their twins bit for bit."""
+    seq, wx, wy = _warp_inputs(*shape, motion, 46, cuda_device)
+    f = shape[1]
+    ref = f // 2
+    if identity == "ref":
+        got = warp_shift.warp_stack(seq, wx, wy, ref)
+        want = warp_shift.warp_stack_ref(seq, wx, wy, ref)
+    else:
+        factors = [0.75 * (k - ref) for k in range(f)]
+        got = warp_pallas.warp_stack_pallas(seq, wx, wy, factors)
+        want = warp_pallas.warp_stack_pallas_ref(seq, wx, wy, factors)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("motion", list(MOTIONS))
+def test_warp_bilinear_entry_without_mask_bit_equal(cuda_device, motion):
+    seq, wx, wy = _warp_inputs(2, 1, 3, 21, 45, motion, 47, cuda_device)
+    got, mask = warp_pallas.warp_bilinear_pallas(seq[:, 0], wx, wy, 1.5,
+                                                 with_mask=False)
+    assert mask is None
+    want, _ = warp_pallas.warp_bilinear(seq[:, 0], wx, wy, 1.5)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
