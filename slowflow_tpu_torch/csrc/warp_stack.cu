@@ -25,9 +25,9 @@
 // flow once and loops over all F frames (three channels unrolled), so the
 // flow is read once per pixel and each frame's 12 corner loads per pixel
 // are in flight together. One pixel a thread measured faster than two or
-// four, and a persistent grid no faster than a block per tile (PERF.md,
-// PR 4). The identity frame is copied in the same pass with float4 loads
-// and stores where rows are 16-byte aligned (W % 4 == 0). Corner gathers
+// four, and a persistent grid no faster than a block per tile (PERF.md).
+// The identity frame is copied in the same pass with float4 loads and
+// stores where rows are 16-byte aligned (W % 4 == 0). Corner gathers
 // take the read-only path (__ldg); stores stay cacheable, since K3 reads the
 // warped stack next on the stack route and it fits the 50 MB L2.
 // Coordinates and the interpolation use __fmul_rn / __fadd_rn, the twin's
