@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's stage-2 jet solve on one GPU.
+"""Drive the PyTorch + CUDA port's stage-2 jet solve, its EPIC init and the
+stage-1 and standalone EpicFlow CLIs on one GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure makes the script exit non-zero without the final line):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
      from slowflow_tpu_torch/csrc (one nvcc per source, in parallel) and
-     print the build time;
+     the host Dijkstra of the EPIC init (slowflow_tpu_torch/native, g++),
+     and print the build times;
   2. each kernel against its plain PyTorch twin on the card at the bench
      shapes (B=4, S=3, 270x480 and the coarsest level 176x314): K2
      warp_assemble and K3 fused_data in all three modes, K1 solve_step for
@@ -14,7 +16,8 @@ Phases (any failure makes the script exit non-zero without the final line):
      warp_stack at the bench flow and at ~20 px, K5 sor (30 sweeps from a
      nonzero increment), K6's entry warp_stack_pallas (factors -2..2), and
      K3 on K4's stack against K2; K1 and K5 also on their streaming path
-     (B=16 at 270x480) and at odd shapes, K2 at an odd shape; relative
+     (B=16 at 270x480) and at odd shapes, K5 at stage 1's B=40 x 270x480,
+     K2 at an odd shape; relative
      error, time (CUDA events), the least time the card could take for the
      same work (bound), the time of grid_sample on K4's and K6's planes (K4
      and K6's entry must not take more device time than it at the bench
@@ -34,7 +37,21 @@ Phases (any failure makes the script exit non-zero without the final line):
   4. the stage-2 CLI (deep_matching 0) on a small synthetic PNG sequence,
      once with the default route and once with the cfg keys
      slow_flow_merge_warp 0, slow_flow_fused_solve 0, slow_flow_pallas_sor 1
-     (launch counts must show the stack route and the composed solve).
+     (launch counts must show the stack route and the composed solve);
+  5. cli_stage2_epic: the stage-2 CLI with deep_matching 1 (EPIC init, no
+     quantil.dat, so matcher radius 50) at the bench configuration on the
+     bench scene written as 8-bit PNGs at 270x480, Jets 4, S = 3, -batch 4,
+     in this process with the phase timers on: K1 and K2 launched,
+     flow_recovery_err_px of jet 0's forward .flo (per frame) <= 0.01, the
+     init's own recovery error, matches kept, the per-phase seconds and the
+     wall per batch; then the same CLI with deep_matching 0 for the wall
+     per batch without the init;
+  6. stage1: the stage-1 CLI over 40 samples of 42 frames of the same scene
+     at 270x480 (-scale 1.0 -skip 2 -samples 40 -step 1): K5 launched,
+     quantil.dat's first value within 10 % of |(1.5, -0.8)| = 1.70 px/frame,
+     the batched two-frame solve's time and K5's plan at B = 40;
+  7. epicflow_cli: the standalone EpicFlow CLI on one 270x480 pair with
+     auto edges and matches and -sintel: exit 0 and the flow recovered.
 Prints a JSON line with one entry per kernel (K3's also with its other
 modes' times at the bench shape), then
 {"ok": true, "device": {...}} as the last line. A detailed record goes to
@@ -78,6 +95,9 @@ FLOW_MEDIAN_TOL = 1e-3  # px
 FLOW_MEAN_TOL = 1e-2    # px
 LABEL_SHARE_TOL = 0.01  # share of occlusion labels that differ
 RECOVERY_TOL = 0.01     # px, |median(wx) - 1.5| on the bench scene
+QUANTIL_TOL = 0.10      # relative, stage 1's quantile against |(u, v)|
+EPICFLOW_TOL = 0.1      # px, the standalone CLI's interior median flow
+BENCH_UV = (1.5, -0.8)  # the bench scene's background motion, px/frame
 
 # kernels each route must launch; every other kernel must stay at zero
 ROUTE_KERNELS = {
@@ -293,12 +313,19 @@ def _one_call_profile(fn, attempts: int = 10) -> dict:
 def build():
     from slowflow_tpu_torch import kernels
 
+    from slowflow_tpu_torch import native
+
     t0 = time.perf_counter()
     kernels.build()
     kernels.load()
     RECORD["build_s"] = time.perf_counter() - t0
     print(f"kernels built and loaded in {RECORD['build_s']:.1f} s "
           f"({kernels.library_path().relative_to(HERE)})")
+    t0 = time.perf_counter()
+    native.load()
+    RECORD["native_build_s"] = time.perf_counter() - t0
+    print(f"host Dijkstra built and loaded in {RECORD['native_build_s']:.1f}"
+          f" s ({native.library_path().relative_to(HERE)})")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -528,7 +555,8 @@ def route_kernels_vs_twins():
                       f"{r['library_device_ms']:.4f} ms (CUDA events "
                       f"{r['ms']:.4f} vs {r['library_ms']:.4f} ms)")
 
-    for (b, h, w) in ((4, 270, 480), (4, 176, 314), (16, 270, 480)):
+    for (b, h, w) in ((4, 270, 480), (4, 176, 314), (16, 270, 480),
+                      (40, 270, 480)):
         t = _k1_inputs(b, h, w, 2, dev)
         rng = np.random.default_rng(3)
         wh, wv = (torch.tensor(0.5 * rng.random((b, h, w)) + 0.05,
@@ -793,6 +821,220 @@ def _cli_flows(out, u, v, what):
     return flows
 
 
+# ------------------------------------------------------------- phases 5-7
+def _write_scene_pngs(seq_dir: Path, n: int, h: int = 270, w: int = 480):
+    """The bench scene (background (1.5, -0.8) px/frame) as 8-bit PNGs
+    frame_000.png ... frame_<n-1>.png."""
+    from PIL import Image
+
+    from slowflow_tpu_torch.bench_scene import moving_sequence
+
+    seq_dir.mkdir(parents=True)
+    frames = moving_sequence(n, h, w, *BENCH_UV, seed=0)
+    for f, img in enumerate(frames):
+        Image.fromarray(np.clip(np.round(np.moveaxis(img, 0, -1)), 0, 255)
+                        .astype(np.uint8)).save(seq_dir / f"frame_{f:03d}.png")
+
+
+@contextlib.contextmanager
+def _phase_timers():
+    """The port's phase timers on (SF_PROF=1), starting from zero; the CLIs'
+    own report (which would reset them) is silenced."""
+    from slowflow_tpu_torch.cli import slow_flow
+    from slowflow_tpu_torch.utils import phases
+
+    was = phases.ENABLED
+    phases.ENABLED = True
+    phases.reset()
+    try:
+        with mock.patch.object(slow_flow, "phase_report", lambda: None):
+            yield phases
+    finally:
+        phases.ENABLED = was
+        phases.reset()
+
+
+# the stage-2 CLI's phases printed per batch: staging, preprocess, matches,
+# the two distance transforms (device part inside), seed graph, Dijkstra,
+# fits, waiting for the init, the solve, the whole batch
+EPIC_PHASES = ("sf.stage_window8", "sf.preprocess_frames", "sf.matches",
+               "sf.epic", "epic.prefilter_dt", "epic.main_dt",
+               "epic.dt_device", "epic.seed_graph", "epic.dijkstra",
+               "epic.prefilter_fit", "epic.fit_la", "epic.apply_la",
+               "sf.epic_post", "sf.init_wait", "sf.solve", "sf.batch")
+
+
+def _stage2_cfg(seq_dir: Path, out: Path, deep_matching: int) -> str:
+    """The bench configuration through the CLI's cfg keys: 5 levels at
+    p_scale 0.9, 10 alternations x 10 outer x 30 SOR sweeps, occlusion on,
+    S = 3, 4 jets at the frame rate of the frames."""
+    return textwrap.dedent(f"""\
+    file\t{seq_dir}/frame_%03i.png
+    output\t{out}
+    Jets\t4
+    start\t2
+    max_fps\t40
+    ref_fps\t20
+    jet_fps\t40
+    adaptive\t0
+    16bit\t0
+    raw\t0
+    scale\t1.0
+    deep_matching\t{deep_matching}
+    slow_flow_S\t3
+    slow_flow_layers\t5
+    slow_flow_p_scale\t0.9
+    slow_flow_niter_alter\t10
+    slow_flow_niter_outer\t10
+    slow_flow_niter_solver\t30
+    slow_flow_occlusion_reasoning\t1
+    slow_flow_smoothing\t1
+    """)
+
+
+def cli_stage2_epic():
+    import torch
+
+    from slowflow_tpu_torch import kernels
+    from slowflow_tpu_torch.cli import slow_flow
+    from slowflow_tpu_torch.io import read_flo
+
+    steps = 2                              # S - 1
+    rec = RECORD.setdefault("cli_stage2_epic", {})
+    slow_flow_matcher = slow_flow.grid_matches_batched
+    slow_flow_solve = slow_flow.variational_mt_batched
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        tmp = Path(tmp)
+        _write_scene_pngs(tmp / "seq", 1 + 6 * steps)
+        for dm in (1, 0):
+            cfg = tmp / f"dm{dm}.cfg"
+            cfg.write_text(_stage2_cfg(tmp / "seq", tmp / f"out{dm}", dm))
+            kept, inits = [], []
+
+            def matcher(*args, **kw):
+                out = slow_flow_matcher(*args, **kw)
+                kept.extend(len(m) for m in out)
+                return out
+
+            def solve(wx0, wy0, *args, **kw):
+                inits.append(float(wx0[0, 8:-8, 8:-8].median()))
+                return slow_flow_solve(wx0, wy0, *args, **kw)
+
+            with _phase_timers() as phases, \
+                    mock.patch.object(slow_flow, "grid_matches_batched",
+                                      matcher), \
+                    mock.patch.object(slow_flow, "variational_mt_batched",
+                                      solve):
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                rc = slow_flow.main([str(cfg), "-batch", "4"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = dict(kernels.LAUNCHES)
+                totals = phases.totals()
+            flow = read_flo(tmp / f"out{dm}" / "frame_002.flo")
+            err = abs(float(np.median(flow[8:-8, 8:-8, 0])) / steps
+                      - BENCH_UV[0])
+            n_batch = totals.get("sf.batch", (0.0, 0))[1]
+            r = dict(rc=rc, wall_s=wall, launches=counts,
+                     flow_recovery_err_px=err, batches=n_batch,
+                     phases={k: v for k, v in totals.items()},
+                     wall_per_batch_s=totals["sf.batch"][0] / max(n_batch, 1),
+                     solve_per_batch_s=totals["sf.solve"][0] / max(n_batch, 1))
+            if dm:
+                r.update(matches_kept=kept, init_recovery_err_px=abs(
+                    inits[0] - BENCH_UV[0]) if inits else None)
+            rec["deep_matching_1" if dm else "deep_matching_0"] = r
+            what = f"CLI stage 2, deep_matching {dm}"
+            check(rc == 0, f"{what}: exit code {rc} ({wall:.1f} s)")
+            check(counts["solve_step"] > 0 and counts["warp_assemble"] > 0,
+                  f"{what}: launches {counts} (K1 solve_step and K2 "
+                  "warp_assemble)")
+            check(err <= RECOVERY_TOL, f"{what}: flow_recovery_err_px of jet"
+                  f" 0's forward .flo per frame {err:.5f} <= {RECOVERY_TOL}")
+            print(f"{what}: {n_batch} batches of 4 jets, wall per batch "
+                  f"{r['wall_per_batch_s']:.3f} s (solve "
+                  f"{r['solve_per_batch_s']:.3f} s); merged slice of phase 3"
+                  f" {RECORD.get('slices', {}).get('merged', {}).get('kernel_wall_s')} s")
+            if dm:
+                print(f"  EPIC init recovery error {r['init_recovery_err_px']}"
+                      f" px; matches kept per jet {kept}")
+                for name in EPIC_PHASES:
+                    sec, n = totals.get(name, (0.0, 0))
+                    print(f"  {name:<24} {sec:8.3f} s  x{n:<3} "
+                          f"{sec / max(n_batch, 1):8.3f} s per batch")
+                check(bool(kept) and min(kept) > 100,
+                      f"{what}: the matcher kept {kept} matches per jet")
+
+
+def stage1():
+    import torch
+
+    from slowflow_tpu_torch import kernels
+    from slowflow_tpu_torch.cli import adaptive_fr
+    from slowflow_tpu_torch.variational import fused_solve
+
+    plan = fused_solve.solve_plan(40, 270, 480, k5=True)
+    rec = RECORD.setdefault("stage1", {"k5_plan_b40": plan._asdict()})
+    print(f"K5 plan at (40, 270, 480): {plan}")
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        tmp = Path(tmp)
+        _write_scene_pngs(tmp / "seq", 42)
+        with _phase_timers() as phases:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = adaptive_fr.main([
+                "-path", str(tmp), "-folder", "seq",
+                "-format", "frame_%03i.png", "-scale", "1.0", "-skip", "2",
+                "-samples", "40", "-step", "1", "-start", "0"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(kernels.LAUNCHES)
+            totals = phases.totals()
+        qf = tmp / "seq" / "quantil.dat"
+        values = [float(x) for x in qf.read_text().split()] \
+            if qf.exists() else []
+    target = float(np.hypot(*BENCH_UV))
+    rec.update(rc=rc, wall_s=wall, launches=counts, quantil=values,
+               phases={k: v for k, v in totals.items()})
+    check(rc == 0, f"stage 1: exit code {rc} ({wall:.1f} s)")
+    check(counts["sor"] > 0, f"stage 1: launches {counts} (K5 sor)")
+    check(bool(values) and abs(values[0] - target) <= QUANTIL_TOL * target,
+          f"stage 1: quantil.dat {values} vs |(u, v)| = {target:.3f}")
+    for name in ("af.read_frames", "af.preprocess", "af.matches", "af.epic",
+                 "af.twoframe", "epic.dt_device", "epic.seed_graph",
+                 "epic.dijkstra"):
+        sec, n = totals.get(name, (0.0, 0))
+        print(f"  {name:<20} {sec:8.3f} s  x{n}")
+
+
+def epicflow_cli():
+    from slowflow_tpu_torch.cli import epicflow
+    from slowflow_tpu_torch.io import read_flo
+
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        tmp = Path(tmp)
+        _write_scene_pngs(tmp / "seq", 2)
+        out = tmp / "pair.flo"
+        t0 = time.perf_counter()
+        rc = epicflow.main([str(tmp / "seq" / "frame_000.png"),
+                            str(tmp / "seq" / "frame_001.png"), "auto",
+                            "auto", str(out), "-sintel"])
+        wall = time.perf_counter() - t0
+        flow = read_flo(out) if out.exists() else None
+    check(rc == 0 and flow is not None,
+          f"epicflow CLI: exit code {rc} ({wall:.1f} s)")
+    if flow is None:
+        return
+    med = [float(np.median(flow[8:-8, 8:-8, c])) for c in (0, 1)]
+    RECORD["epicflow_cli"] = dict(rc=rc, wall_s=wall, median_flow=med)
+    check(all(abs(m - t) <= EPICFLOW_TOL for m, t in zip(med, BENCH_UV)),
+          f"epicflow CLI: interior median flow ({med[0]:.4f}, {med[1]:.4f}) "
+          f"vs {BENCH_UV}")
+
+
 def main() -> int:
     import torch
 
@@ -815,7 +1057,8 @@ def main() -> int:
 
     for fn in (build, kernels_vs_twins, route_kernels_vs_twins, slice_merged,
                slice_stack_composed, slice_unfused_pallas_warp,
-               slice_profiles, cli_stage2):
+               slice_profiles, cli_stage2, cli_stage2_epic, stage1,
+               epicflow_cli):
         phase(fn)
 
     kv = RECORD.get("kernels_vs_twins", {})
@@ -855,6 +1098,17 @@ def main() -> int:
                      "slowflow_tpu/core/warp_pallas.py:138", "unfused",
                      lambda r: True),
     ]}
+    # K5 on stage 1's path: launches of the stage-1 run, time at B = 40
+    k5_b40 = [r for r in kv.get("sor", []) if r["shape"] == [40, 270, 480]]
+    line["kernels"][4]["stage1_launches"] = RECORD.get("stage1", {}).get(
+        "launches", {}).get("sor", 0)
+    line["kernels"][4]["b40"] = {k: k5_b40[0].get(k) for k in (
+        "ms", "plain_ms", "bound_ms", "device_ms")} if k5_b40 else None
+    # K1 / K2 launches on the EPIC-initialized CLI run
+    epic_run = RECORD.get("cli_stage2_epic", {}).get("deep_matching_1", {})
+    for entry in line["kernels"][:2]:
+        entry["cli_epic_launches"] = epic_run.get("launches", {}).get(
+            entry["name"], 0)
     # K3's other modes at the bench shape
     line["kernels"][2]["modes"] = {
         f"{r['mode']} zero_duv={r['zero_duv']}": dict(

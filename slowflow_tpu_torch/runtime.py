@@ -3,6 +3,7 @@ caller asks for the CPU; a CUDA path that finds no GPU raises, and nothing
 falls back to the CPU behind the caller's back."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,6 +17,21 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                            "pass device='cpu' (the CLI: -device cpu) to run "
                            "the plain PyTorch twins on the CPU")
     return device
+
+
+def device_of(x, device: str | torch.device | None = None) -> torch.device:
+    """`device` if given, else the device of `x` when it is a tensor, else
+    CUDA (resolved as `resolve_device` does: raises without a GPU)."""
+    if device is None and isinstance(x, torch.Tensor):
+        return x.device
+    return resolve_device(device)
+
+
+def as_f32(x, device: torch.device) -> torch.Tensor:
+    """A contiguous float32 tensor on `device` from a tensor or an array."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32).contiguous()
+    return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)
 
 
 def kernels_available() -> bool:

@@ -36,7 +36,7 @@ from ..core.image import build_pyramid, pyramid_sizes, rescale_flow
 from ..core.solver_pallas import sor_coupled_rb_pallas
 from ..core.warp_pallas import warp_stack_pallas
 from ..core.warp_shift import warp_stack
-from ..runtime import resolve_device
+from ..runtime import as_f32, device_of
 from .fused_data import fused_data_system
 from .fused_solve import solve_step
 from .fused_warp import warp_assemble
@@ -259,12 +259,6 @@ def _mt_pipeline(wx, wy, seq, channel_w, norm_avg, norm_std,
     return wx, wy, occ
 
 
-def _as_f32(x, device):
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.float32).contiguous()
-    return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)
-
-
 def variational_mt_batched(wx, wy, seq, p: MultiFrameParams, channel_w=None,
                            norm_avg=None, norm_std=None, *, device=None):
     """Jet-batched multi-frame minimization.
@@ -275,21 +269,19 @@ def variational_mt_batched(wx, wy, seq, p: MultiFrameParams, channel_w=None,
     raises when torch finds no GPU); the CPU only when asked for, by
     `device="cpu"` or CPU tensors. Returns (wx, wy, occlusions) [B, H, W]
     tensors on that device."""
-    if device is None and isinstance(seq, torch.Tensor):
-        device = seq.device
-    device = resolve_device(device)
-    seq = _as_f32(seq, device)
-    wx = _as_f32(wx, device)
-    wy = _as_f32(wy, device)
+    device = device_of(seq, device)
+    seq = as_f32(seq, device)
+    wx = as_f32(wx, device)
+    wy = as_f32(wy, device)
     b, f, _, h, w = seq.shape
     if f != 2 * p.ref + 1:
         raise ValueError(f"window of {f} frames does not match S = {p.S}")
     channel_w = torch.ones((b, 3, h, w), device=device) if channel_w is None \
-        else _as_f32(channel_w, device)
+        else as_f32(channel_w, device)
     norm_avg = torch.zeros((b, 3), device=device) if norm_avg is None \
-        else _as_f32(norm_avg, device)
+        else as_f32(norm_avg, device)
     norm_std = torch.ones((b, 3), device=device) if norm_std is None \
-        else _as_f32(norm_std, device)
+        else as_f32(norm_std, device)
     return _mt_pipeline(wx, wy, seq, channel_w, norm_avg, norm_std, p)
 
 

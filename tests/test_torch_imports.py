@@ -1,8 +1,9 @@
 """The port stands alone: no module of slowflow_tpu_torch, and not
 chip_smoke.py, imports the JAX package, the JAX benchmark or jax; and the
 port's own copies of the JAX package's jax-free helpers (cfg parsing, .flo /
-image / PBM I/O, demosaicing, colour wheel, EPE, frame naming, the bench
-scene) agree with the originals on the same inputs."""
+image / PBM / edge-map / match-file I/O, demosaicing, colour wheel, EPE,
+frame naming, the phase timers, the bench scene, the seed-graph Dijkstra's
+C++ source) agree with the originals on the same inputs."""
 from __future__ import annotations
 
 import ast
@@ -46,7 +47,12 @@ def test_cli_import_leaves_the_jax_package_out():
     code = textwrap.dedent("""
         import sys
         import slowflow_tpu_torch.cli.slow_flow
+        import slowflow_tpu_torch.cli.adaptive_fr
+        import slowflow_tpu_torch.cli.epicflow
         import slowflow_tpu_torch.bench_scene
+        import slowflow_tpu_torch.epic
+        import slowflow_tpu_torch.native
+        import slowflow_tpu_torch.variational.twoframe
         print(sorted(m for m in sys.modules
                      if m.split(".")[0] in ("slowflow_tpu", "bench", "jax")))
     """)
@@ -104,6 +110,61 @@ def test_image_and_pbm_round_trips_are_bit_equal(tmp_path):
         jax_images.write_image(tmp_path / "b.png", img, bit16=bit16)
         np.testing.assert_array_equal(read_image(tmp_path / "a.png"),
                                       jax_images.read_image(tmp_path / "b.png"))
+
+
+def test_edge_and_match_files_round_trip_bit_equal(tmp_path):
+    from slowflow_tpu.io import edges as jax_edges
+    from slowflow_tpu.io import matches as jax_matches
+    from slowflow_tpu_torch.io import (read_edges, read_matches, write_edges,
+                                       write_matches)
+
+    rng = np.random.default_rng(4)
+    edges = rng.random((13, 17)).astype(np.float32)
+    write_edges(tmp_path / "a.dat", edges)
+    jax_edges.write_edges(tmp_path / "b.dat", edges)
+    assert (tmp_path / "a.dat").read_bytes() == (tmp_path / "b.dat").read_bytes()
+    np.testing.assert_array_equal(read_edges(tmp_path / "b.dat", 17, 13),
+                                  jax_edges.read_edges(tmp_path / "a.dat", 17,
+                                                       13))
+    with pytest.raises(ValueError):
+        read_edges(tmp_path / "a.dat", 18, 13)
+    matches = np.concatenate([rng.integers(0, 90, (20, 2)),
+                              rng.normal(40, 20, (20, 2))], 1)
+    write_matches(tmp_path / "a.txt", matches)
+    jax_matches.write_matches(tmp_path / "b.txt", matches)
+    assert (tmp_path / "a.txt").read_text() == (tmp_path / "b.txt").read_text()
+    with open(tmp_path / "a.txt", "a") as fh:
+        fh.write("1 2 3\nnot a match line\n5 6 7 8 0.9 12\n")
+    np.testing.assert_array_equal(read_matches(tmp_path / "a.txt"),
+                                  jax_matches.read_matches(tmp_path / "a.txt"))
+    (tmp_path / "empty.txt").write_text("")
+    assert read_matches(tmp_path / "empty.txt").shape == (0, 4)
+
+
+def test_geodesic_source_is_the_jax_packages():
+    assert (PORT / "native" / "geodesic.cpp").read_bytes() == \
+        (ROOT / "slowflow_tpu" / "native" / "geodesic.cpp").read_bytes()
+
+
+def test_phase_reports_agree(monkeypatch, capsys):
+    from slowflow_tpu.utils import phases as jax_phases
+    from slowflow_tpu_torch.utils import phases
+
+    outs = []
+    for mod in (phases, jax_phases):
+        monkeypatch.setattr(mod, "ENABLED", True)
+        mod.report()                      # start from empty accumulators
+        capsys.readouterr()
+        for name, sec in (("sf.solve", 1.25), ("sf.matches", 0.5),
+                          ("sf.solve", 0.75)):
+            mod.add(name, sec)
+        with mod.phase("epic.dt_device"):
+            pass
+        mod.report()
+        outs.append([ln for ln in capsys.readouterr().out.splitlines()
+                     if "epic.dt_device" not in ln and "TOTAL" not in ln])
+    assert outs[0] == outs[1]
+    assert any("sf.solve" in ln and "x2" in ln for ln in outs[0])
 
 
 def test_demosaic_agrees_on_a_seeded_bayer_frame():

@@ -311,11 +311,23 @@ def test_cli_route_keys_reach_the_route(tmp_path):
     assert np.hypot(flow[..., 0] - 1.0, flow[..., 1] - 0.5).mean() < 0.1
 
 
-def test_cli_deep_matching_not_ported(tmp_path):
+def test_cli_deep_matching_runs(tmp_path):
+    """deep_matching 1 starts each solve from the EPIC init and recovers
+    the translation (tests/test_torch_cli_epic.py holds the init to the JAX
+    CLI's)."""
+    from slowflow_tpu.io import read_flo
     from slowflow_tpu_torch.cli.slow_flow import main
 
+    u, v = 1.0, 0.5
     seq_dir = tmp_path / "seq"
-    seq_dir.mkdir()
-    with pytest.raises(NotImplementedError, match="EPIC"):
-        main([str(_cfg(tmp_path, seq_dir, deep_matching=1)), "-device",
-              "cpu"])
+    _write_translating_sequence(seq_dir, u, v)
+    # a maximum flow of 2 px: max_flow 6, the matcher's smallest radius, 8
+    (seq_dir / "quantil.dat").write_text("1.1\n2.0\n")
+    rc = main([str(_cfg(tmp_path, seq_dir, deep_matching=1)), "-batch", "2",
+               "-device", "cpu"])
+    assert rc == 0
+    inner = (slice(10, -10), slice(10, -10))
+    for name, sign in (("frame_002.flo", 1), ("frame_003_back.flo", -1)):
+        flow = read_flo(tmp_path / "sf_out" / name)[inner]
+        err = np.hypot(flow[..., 0] - sign * u, flow[..., 1] - sign * v)
+        assert err.mean() < 0.1, (name, err.mean())
