@@ -51,7 +51,24 @@ Phases (any failure makes the script exit non-zero without the final line):
      quantil.dat's first value within 10 % of |(1.5, -0.8)| = 1.70 px/frame,
      the batched two-frame solve's time and K5's plan at B = 40;
   7. epicflow_cli: the standalone EpicFlow CLI on one 270x480 pair with
-     auto edges and matches and -sintel: exit 0 and the flow recovered.
+     auto edges and matches and -sintel: exit 0 and the flow recovered;
+  8. stage3_final_pair: stage 3 (dense tracking, torch ops, no hand
+     kernel) on the bench final pair of slowflow_tpu_torch/bench_scene.py
+     (270x480, Jets 10, capacity 16, 5 alternations, 20 tryouts, EPIC
+     hypotheses), after a warm-up with 2 alternations: wall, the six
+     result.info rows, peak memory, dt_flow_err_px <= 0.10; the same call
+     under torch.profiler for its CUDA launches, device busy time and the
+     idle share of each alternation;
+  9. stage3_batched: final pairs of seeds 0 and 1 as one batch of 2 and
+     as two serial calls: flows within 1e-4 px, occlusion maps equal, wall
+     per final and peak memory both ways;
+ 10. cli_stage3: the stage-2 CLI (bench config, deep_matching 0, Jets 4,
+     S = 3) on the scene's PNGs at 270x480, then the stage-3 CLI with
+     -threads 2 -batch_finals 2 over 2 final pairs of 2 jets
+     (acc_skip_pixel 1, EPIC on): exit 0, each final's .flo, occlusion PBM
+     and the six result.info rows, interior medians within 0.1 px per jet
+     of Jets * steps * (1.5, -0.8) / 2, and a -resume rerun that reports
+     every final as already existing.
 Prints a JSON line with one entry per kernel (K3's also with its other
 modes' times at the bench shape), then
 {"ok": true, "device": {...}} as the last line. A detailed record goes to
@@ -1035,6 +1052,233 @@ def epicflow_cli():
           f"vs {BENCH_UV}")
 
 
+# ------------------------------------------------------------ phases 8-10
+DT_ERR_TOL = 0.10       # px, dt_flow_err_px (the JAX package: 0.089)
+DT_ROWS = ("warp", "median", "data", "unary", "pairwise", "optimization")
+
+
+def _stage3_profile(cfg, job):
+    """One final pair under torch.profiler: CUDA kernel launches and device
+    busy time in all, and per alternation (the driver's `dt.alternate`
+    ranges on the host, each ending in a synchronize) the window, busy time
+    and idle share. The profiler also files each range as a device-side
+    annotation, which is no kernel and is left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from slowflow_tpu_torch.tracking.driver import track_final_pairs_batched
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        track_final_pairs_batched(cfg, [job], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(ev.time_range.start, ev.time_range.end, ev.name)
+               for ev in _kernel_events(prof) if ev.name != "dt.alternate"]
+    alternations = []
+    for ev in prof.events():
+        if ev.name != "dt.alternate" or ev.device_type != DeviceType.CPU:
+            continue
+        a, b = ev.time_range.start, ev.time_range.end
+        busy = sum(max(0, min(e, b) - max(s, a)) for s, e, _ in kernels)
+        alternations.append(dict(
+            window_ms=(b - a) / 1e3, busy_ms=busy / 1e3,
+            idle_share=1 - busy / max(b - a, 1),
+            launches=sum(a <= s < b for s, _, _ in kernels)))
+    by_name = {}
+    for s, e, name in kernels:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (e - s) / 1e3, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
+    return dict(profiled_wall_s=wall, launches=len(kernels), busy_ms=busy,
+                idle_share=1 - busy / (wall * 1e3), alternations=alternations,
+                top_kernels=sorted(([k[:80], ms, n] for k, (ms, n)
+                                    in by_name.items()),
+                                   key=lambda r: -r[1])[:12])
+
+
+def stage3_final_pair():
+    """The bench final pair (bench_scene.stage3_final_pair, 270x480, Jets
+    10, capacity 16, 5 alternations, 20 tryouts, EPIC on) after a warm-up
+    with 2 alternations: wall, the six result.info rows, peak memory,
+    dt_flow_err_px; then the same call under the profiler for its launches
+    and the idle share per alternation."""
+    from dataclasses import replace
+
+    import torch
+
+    from slowflow_tpu_torch.bench_scene import (dt_flow_err_px, stage3_config,
+                                                stage3_final_pair as scene)
+    from slowflow_tpu_torch.tracking.driver import track_final_pairs_batched
+
+    dev = torch.device("cuda")
+    cfg = stage3_config()
+    job, gt = scene(seed=0, device=dev)
+    track_final_pairs_batched(replace(cfg, alternate=2), [job], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _phase_timers() as phases:
+        t0 = time.perf_counter()
+        flows, occs, info = track_final_pairs_batched(cfg, [job], device=dev)
+        wall = time.perf_counter() - t0
+        totals = phases.totals()
+    peak = torch.cuda.max_memory_allocated()
+    flow = flows[0]
+    err = dt_flow_err_px(flow, gt)
+    rec = dict(wall_s=wall, timing=info["timing"], peak_bytes=peak,
+               dt_flow_err_px=err, flow_shape=list(flow.shape),
+               occluded_share=float((occs[0] > 0).mean()), phases=totals)
+    rec.update(_stage3_profile(cfg, job))
+    rec["idle_share_unprofiled"] = 1 - rec["busy_ms"] / (wall * 1e3)
+    RECORD["stage3_final_pair"] = rec
+    print(f"stage 3 final pair at 270x480, Jets 10: {wall:.3f} s, peak "
+          f"{peak / 2**30:.2f} GiB, dt_flow_err_px {err:.4f}")
+    print("  " + ", ".join(f"{k} {info['timing'][k]:.3f} s" for k in DT_ROWS))
+    print("  " + ", ".join(f"{k} {s:.3f} s x{n}" for k, (s, n)
+                           in sorted(totals.items())))
+    print(f"  profiled: {rec['launches']} CUDA launches, busy "
+          f"{rec['busy_ms']:.1f} ms of {rec['profiled_wall_s']:.3f} s, idle "
+          f"share {rec['idle_share']:.3f} ({rec['idle_share_unprofiled']:.3f}"
+          " of the unprofiled wall)")
+    for k, a in enumerate(rec["alternations"]):
+        print(f"  alternation {k}: {a['window_ms']:.1f} ms, busy "
+              f"{a['busy_ms']:.1f} ms, idle share {a['idle_share']:.3f}, "
+              f"{a['launches']} launches")
+    for name, ms, n in rec["top_kernels"]:
+        print(f"  {ms:9.2f} ms  {n:7d} x  {name}")
+    check(list(flow.shape) == [135, 240, 2] and bool(np.isfinite(flow).all()),
+          f"stage 3 flow {list(flow.shape)} finite")
+    check(err <= DT_ERR_TOL, f"stage 3 dt_flow_err_px {err:.4f} <= "
+          f"{DT_ERR_TOL}")
+    check(rec["launches"] > 0 and len(rec["alternations"]) == cfg.alternate,
+          f"stage 3 profile: {rec['launches']} launches, "
+          f"{len(rec['alternations'])} alternations")
+
+
+def stage3_batched():
+    """Two final pairs of the bench scene (seeds 0 and 1) as one batch of 2
+    and as two serial calls: flows within 1e-4 px, occlusion maps equal."""
+    import torch
+
+    from slowflow_tpu_torch.bench_scene import (stage3_config,
+                                                stage3_final_pair as scene)
+    from slowflow_tpu_torch.tracking.driver import track_final_pairs_batched
+
+    dev = torch.device("cuda")
+    cfg = stage3_config()
+    jobs = [scene(seed=s, device=dev)[0] for s in (0, 1)]
+
+    def timed(batch):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        flows, occs, _ = track_final_pairs_batched(cfg, batch, device=dev)
+        return flows, occs, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated()
+
+    serial = [timed([job]) for job in jobs]
+    flows, occs, wall, peak = timed(jobs)
+    diff = max(float(np.abs(f - s[0][0]).max()) for f, s in zip(flows, serial))
+    same = all(np.array_equal(o, s[1][0]) for o, s in zip(occs, serial))
+    RECORD["stage3_batched"] = dict(
+        serial_wall_s=[s[2] for s in serial], batched_wall_s=wall,
+        batched_wall_per_final_s=wall / 2,
+        serial_peak_bytes=[s[3] for s in serial], batched_peak_bytes=peak,
+        max_flow_diff_px=diff, occlusions_equal=same)
+    print(f"stage 3 batched F = 2: {wall / 2:.3f} s per final (serial "
+          f"{serial[0][2]:.3f}, {serial[1][2]:.3f} s); peak "
+          f"{peak / 2**30:.2f} GiB (serial "
+          f"{max(s[3] for s in serial) / 2**30:.2f})")
+    check(diff <= 1e-4, f"stage 3 batched vs serial flow max |d| {diff:.2e}"
+          " px <= 1e-4")
+    check(same, "stage 3 batched vs serial occlusion maps equal")
+
+
+def cli_stage3():
+    """Stage 2 -> stage 3 through the CLIs at 270x480: the stage-2 CLI
+    (bench config, deep_matching 0, Jets 4, S = 3) writes forward and
+    backward jets, then dense_tracking with -threads 2 -batch_finals 2 tracks
+    2 final pairs of 2 jets (acc_skip_pixel 1, EPIC on), then a -resume
+    rerun."""
+    import io
+
+    import torch
+
+    from slowflow_tpu_torch.cli import dense_tracking, slow_flow
+    from slowflow_tpu_torch.io import read_flo
+
+    jets, steps, finals = 2, 2, 2
+    want = [jets * steps * c / 2 for c in BENCH_UV]   # on the 1/2 grid
+    rec = RECORD.setdefault("cli_stage3", {})
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        tmp = Path(tmp)
+        _write_scene_pngs(tmp / "seq", 1 + 6 * steps)
+        cfg2 = tmp / "sf.cfg"
+        cfg2.write_text(_stage2_cfg(tmp / "seq", tmp / "sf_out", 0))
+        t0 = time.perf_counter()
+        rc2 = slow_flow.main([str(cfg2), "-batch", "4"])
+        rec["stage2_rc"], rec["stage2_wall_s"] = rc2, time.perf_counter() - t0
+        check(rc2 == 0, f"CLI stage 2 for stage 3: exit code {rc2}")
+        cfg3 = tmp / "dt.cfg"
+        cfg3.write_text(textwrap.dedent(f"""\
+        file\t{tmp}/seq/frame_%03i.png
+        jet_estimation\t{tmp}/sf_out/
+        flow_format\tframe_%03i
+        output\t{tmp}/dt_out
+        start\t2
+        max_fps\t40
+        ref_fps\t10
+        ref_fps_F\t{finals}
+        16bit\t0
+        raw\t0
+        scale\t1.0
+        acc_skip_pixel\t1
+        acc_epic_interpolation\t1
+        seed\t1
+        """))
+        argv = [str(cfg3), "-threads", "2", "-batch_finals", "2"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = dense_tracking.main(argv)
+        torch.cuda.synchronize()
+        rec.update(rc=rc, wall_s=time.perf_counter() - t0)
+        check(rc == 0, f"CLI stage 3: exit code {rc} ({rec['wall_s']:.1f} s)")
+        out = tmp / "dt_out"
+        info = (out / "result.info").read_text() \
+            if (out / "result.info").exists() else ""
+        rows = [ln for ln in info.splitlines() if ln.endswith("s.")]
+        rec["result_info_rows"] = rows
+        check(len(rows) == 6, f"CLI stage 3 result.info timing rows: {rows}")
+        medians = []
+        for k in range(finals):
+            start = 2 + k * jets * steps
+            flo = out / f"frame_{start:03d}.flo"
+            pbm = out / "occlusions" / f"frame_{start}.pbm"
+            if not (flo.exists() and pbm.exists()):
+                check(False, f"CLI stage 3 wrote {flo.name} and {pbm.name}")
+                continue
+            flow = read_flo(flo)
+            med = [float(np.median(flow[8:-8, 8:-8, c])) for c in (0, 1)]
+            medians.append(med)
+            check(all(abs(m - t) <= 0.1 * jets for m, t in zip(med, want)),
+                  f"CLI stage 3 {flo.name} {list(flow.shape)}: interior "
+                  f"median ({med[0]:.4f}, {med[1]:.4f}) vs ({want[0]}, "
+                  f"{want[1]}) within {0.1 * jets} px")
+        rec["medians"] = medians
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = dense_tracking.main(argv + ["-resume"])
+        said = buf.getvalue().count("already exists")
+        rec["resume"] = dict(rc=rc, already_exists=said)
+        check(rc == 0 and said == finals,
+              f"CLI stage 3 -resume: exit code {rc}, {said} finals reported "
+              "as already existing")
+
+
 def main() -> int:
     import torch
 
@@ -1058,7 +1302,7 @@ def main() -> int:
     for fn in (build, kernels_vs_twins, route_kernels_vs_twins, slice_merged,
                slice_stack_composed, slice_unfused_pallas_warp,
                slice_profiles, cli_stage2, cli_stage2_epic, stage1,
-               epicflow_cli):
+               epicflow_cli, stage3_final_pair, stage3_batched, cli_stage3):
         phase(fn)
 
     kv = RECORD.get("kernels_vs_twins", {})

@@ -2,8 +2,9 @@
 chip_smoke.py, imports the JAX package, the JAX benchmark or jax; and the
 port's own copies of the JAX package's jax-free helpers (cfg parsing, .flo /
 image / PBM / edge-map / match-file I/O, demosaicing, colour wheel, EPE,
-frame naming, the phase timers, the bench scene, the seed-graph Dijkstra's
-C++ source) agree with the originals on the same inputs."""
+frame naming, the phase timers, the bench scenes, the seed-graph
+Dijkstra's C++ source, small-segment removal) agree with the originals on
+the same inputs."""
 from __future__ import annotations
 
 import ast
@@ -49,6 +50,8 @@ def test_cli_import_leaves_the_jax_package_out():
         import slowflow_tpu_torch.cli.slow_flow
         import slowflow_tpu_torch.cli.adaptive_fr
         import slowflow_tpu_torch.cli.epicflow
+        import slowflow_tpu_torch.cli.dense_tracking
+        import slowflow_tpu_torch.tracking
         import slowflow_tpu_torch.bench_scene
         import slowflow_tpu_torch.epic
         import slowflow_tpu_torch.native
@@ -233,3 +236,66 @@ def test_bench_scene_matches_the_jax_benchmark():
         np.testing.assert_array_equal(
             moving_sequence(5, 27, 31, 1.7, -0.8, seed=seed),
             _moving_sequence(5, 27, 31, 1.7, -0.8, seed=seed))
+
+
+def test_remove_small_segments_is_bit_equal():
+    from slowflow_tpu.utils.segments import remove_small_segments as jax_rss
+    from slowflow_tpu_torch.utils.segments import remove_small_segments
+
+    rng = np.random.default_rng(6)
+    binary = (rng.random((30, 40)) > 0.3).astype(np.int32)
+    labels = rng.integers(-2, 3, (30, 40)).astype(np.float32)
+    # exact per-value branch (threshold below the value gap), then the
+    # quantized-similarity branch
+    for F, thr, size in ((binary, 0.1, 5), (labels, 0.5, 4),
+                         (labels, 1.5, 6), (labels * 0.37, 0.2, 3)):
+        mine, theirs = F.copy(), F.copy()
+        np.testing.assert_array_equal(remove_small_segments(mine, thr, size),
+                                      jax_rss(theirs, thr, size))
+        np.testing.assert_array_equal(mine, theirs)
+        assert (mine != F).any()
+
+
+def test_stage3_bench_scene_matches_the_jax_benchmark():
+    """bench.py's dt_final_pair_seconds (its scene, inputs and
+    configuration, lines 181-209) with its tracker replaced by a recorder,
+    against the port's stage3_final_pair / stage3_config."""
+    import dataclasses
+    from unittest import mock
+
+    sys.path.insert(0, str(ROOT))
+    import bench
+    from slowflow_tpu.tracking import driver as jax_driver
+    from slowflow_tpu_torch.bench_scene import (stage3_config,
+                                                stage3_final_pair)
+
+    h, w, jets = 40, 48, 3
+    calls = []
+
+    def recorder(cfg, rate_flows, fwd, bwd, occ, data, ddx, ddy, sw,
+                 epic_ctx=None):
+        calls.append(dict(cfg=cfg, rate_flows=rate_flows, forward=fwd,
+                          backward=bwd, occlusions=occ, data=data,
+                          data_dx=ddx, data_dy=ddy, smooth_weight=sw,
+                          epic_ctx=epic_ctx))
+        return np.zeros((h // 2, w // 2, 2), np.float32), None, {}
+
+    with mock.patch.object(jax_driver, "track_final_pair", recorder):
+        bench.dt_final_pair_seconds(h=h, w=w, jets=jets, seed=1)
+    want = calls[-1]
+    job, gt = stage3_final_pair(h, w, jets, seed=1, device="cpu")
+    assert dataclasses.asdict(stage3_config(jets=jets)) == \
+        dataclasses.asdict(want["cfg"])
+    for k in ("forward", "backward", "data", "smooth_weight"):
+        np.testing.assert_array_equal(job[k], want[k])
+    np.testing.assert_array_equal(job["rate_flows"][0][0],
+                                  want["rate_flows"][0][0])
+    assert job["occlusions"] is None and want["occlusions"] is None
+    for k in ("data_dx", "data_dy"):
+        np.testing.assert_allclose(job[k], want[k], rtol=0,
+                                   atol=1e-5 * np.abs(want[k]).max())
+    for mine, theirs in zip(job["epic_ctx"][:2], want["epic_ctx"][:2]):
+        np.testing.assert_allclose(mine, theirs, rtol=0,
+                                   atol=1e-5 * np.abs(theirs).max())
+    assert job["epic_ctx"][2].__dict__ == want["epic_ctx"][2].__dict__
+    np.testing.assert_array_equal(gt, want["forward"].sum(0)[::2, ::2, 0] / 2)
