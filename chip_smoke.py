@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's stage-2 jet solve, its EPIC init and the
-stage-1 and standalone EpicFlow CLIs on one GPU.
+"""Drive the PyTorch + CUDA port on one GPU: its kernels, the stage-2 jet
+solve, the EPIC init, every CLI, stage 3, the three-stage pipeline and the
+jet split over two shards.
 
     python3 chip_smoke.py
 
@@ -68,7 +69,18 @@ Phases (any failure makes the script exit non-zero without the final line):
      (acc_skip_pixel 1, EPIC on): exit 0, each final's .flo, occlusion PBM
      and the six result.info rows, interior medians within 0.1 px per jet
      of Jets * steps * (1.5, -0.8) / 2, and a -resume rerun that reports
-     every final as already existing.
+     every final as already existing;
+ 11. pipeline: `slowflow_tpu_torch.bench_pipeline.run_pipeline` (the three
+     CLIs on the teaser-shaped scene at 270x480, production cfgs) at 40
+     jets, 8 finals, stage 3 with -threads 2: K1, K2 and K5 launched, the
+     quantile within 10 % of 1.70, sf_flow_err_px and dt_flow_err_px <=
+     0.12; per-stage walls, peak memory and the stage-2 phase split;
+ 12. sharded_solve, in a child process (`--sharded-solve PATH`) with its own
+     300 s limit: variational_mt_sharded at the bench config, batch 4, on
+     [cuda:0, cuda:0] (and on every card when there are several) against
+     variational_mt_batched: bitwise or within the slice tolerances, both
+     walls, K1's plans at B = 2 and 4, and whether the two shards' K1
+     launches overlap under the profiler.
 Prints a JSON line with one entry per kernel (K3's also with its other
 modes' times at the bench shape), then
 {"ok": true, "device": {...}} as the last line. A detailed record goes to
@@ -853,24 +865,6 @@ def _write_scene_pngs(seq_dir: Path, n: int, h: int = 270, w: int = 480):
                         .astype(np.uint8)).save(seq_dir / f"frame_{f:03d}.png")
 
 
-@contextlib.contextmanager
-def _phase_timers():
-    """The port's phase timers on (SF_PROF=1), starting from zero; the CLIs'
-    own report (which would reset them) is silenced."""
-    from slowflow_tpu_torch.cli import slow_flow
-    from slowflow_tpu_torch.utils import phases
-
-    was = phases.ENABLED
-    phases.ENABLED = True
-    phases.reset()
-    try:
-        with mock.patch.object(slow_flow, "phase_report", lambda: None):
-            yield phases
-    finally:
-        phases.ENABLED = was
-        phases.reset()
-
-
 # the stage-2 CLI's phases printed per batch: staging, preprocess, matches,
 # the two distance transforms (device part inside), seed graph, Dijkstra,
 # fits, waiting for the init, the solve, the whole batch
@@ -915,6 +909,7 @@ def cli_stage2_epic():
     from slowflow_tpu_torch import kernels
     from slowflow_tpu_torch.cli import slow_flow
     from slowflow_tpu_torch.io import read_flo
+    from slowflow_tpu_torch.utils import phases
 
     steps = 2                              # S - 1
     rec = RECORD.setdefault("cli_stage2_epic", {})
@@ -937,7 +932,7 @@ def cli_stage2_epic():
                 inits.append(float(wx0[0, 8:-8, 8:-8].median()))
                 return slow_flow_solve(wx0, wy0, *args, **kw)
 
-            with _phase_timers() as phases, \
+            with phases.recording() as timed_phases, \
                     mock.patch.object(slow_flow, "grid_matches_batched",
                                       matcher), \
                     mock.patch.object(slow_flow, "variational_mt_batched",
@@ -949,7 +944,7 @@ def cli_stage2_epic():
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 counts = dict(kernels.LAUNCHES)
-                totals = phases.totals()
+                totals = dict(timed_phases)
             flow = read_flo(tmp / f"out{dm}" / "frame_002.flo")
             err = abs(float(np.median(flow[8:-8, 8:-8, 0])) / steps
                       - BENCH_UV[0])
@@ -990,6 +985,7 @@ def stage1():
 
     from slowflow_tpu_torch import kernels
     from slowflow_tpu_torch.cli import adaptive_fr
+    from slowflow_tpu_torch.utils import phases
     from slowflow_tpu_torch.variational import fused_solve
 
     plan = fused_solve.solve_plan(40, 270, 480, k5=True)
@@ -998,7 +994,7 @@ def stage1():
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         tmp = Path(tmp)
         _write_scene_pngs(tmp / "seq", 42)
-        with _phase_timers() as phases:
+        with phases.recording() as timed_phases:
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
@@ -1009,7 +1005,7 @@ def stage1():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = dict(kernels.LAUNCHES)
-            totals = phases.totals()
+            totals = dict(timed_phases)
         qf = tmp / "seq" / "quantil.dat"
         values = [float(x) for x in qf.read_text().split()] \
             if qf.exists() else []
@@ -1114,6 +1110,7 @@ def stage3_final_pair():
     from slowflow_tpu_torch.bench_scene import (dt_flow_err_px, stage3_config,
                                                 stage3_final_pair as scene)
     from slowflow_tpu_torch.tracking.driver import track_final_pairs_batched
+    from slowflow_tpu_torch.utils import phases
 
     dev = torch.device("cuda")
     cfg = stage3_config()
@@ -1121,11 +1118,11 @@ def stage3_final_pair():
     track_final_pairs_batched(replace(cfg, alternate=2), [job], device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with _phase_timers() as phases:
+    with phases.recording() as timed_phases:
         t0 = time.perf_counter()
         flows, occs, info = track_final_pairs_batched(cfg, [job], device=dev)
         wall = time.perf_counter() - t0
-        totals = phases.totals()
+        totals = dict(timed_phases)
     peak = torch.cuda.max_memory_allocated()
     flow = flows[0]
     err = dt_flow_err_px(flow, gt)
@@ -1279,6 +1276,156 @@ def cli_stage3():
               "as already existing")
 
 
+# ----------------------------------------------------------- phases 11-12
+PIPELINE_JETS, PIPELINE_FINALS = 40, 8   # cut from the teaser's 225 for time
+PIPELINE_ERR_TOL = 0.12  # px, sf_ / dt_flow_err_px (the JAX tool: 0.092 /
+                         # 0.078 at 225 jets)
+PIPELINE_KERNELS = ("solve_step", "warp_assemble", "sor")   # K1, K2, K5
+SHARDED_TIMEOUT_S = 300  # phase 12's own limit: a hang fails only it
+
+
+def pipeline():
+    """The three CLIs end to end (`bench_pipeline.run_pipeline`) on the
+    teaser-shaped scene at 270x480: 40 jets (the fewest that feed 8 finals
+    of 5 jets), 8 finals, stage 3 with -threads 2, the production stage-2
+    and stage-3 cfgs. K1, K2 (stage 2) and K5 (stage 1) must launch."""
+    from slowflow_tpu_torch import bench_pipeline, kernels
+
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        kernels.reset_launch_counts()
+        out = bench_pipeline.run_pipeline(
+            Path(tmp) / "run", PIPELINE_JETS, PIPELINE_FINALS, threads=2,
+            device="cuda")
+        counts = dict(kernels.LAUNCHES)
+    RECORD["pipeline"] = {**out, "launches": counts}
+    bench_pipeline.print_report(out)
+    print(f"pipeline {out['pipeline_s']:.2f} s for {out['jets']} jets "
+          f"({out['pipeline_jets_per_sec']:.4f} jets/s), "
+          f"{out['stage3_s_per_final']:.3f} s per final; launches {counts}")
+    for name in PIPELINE_KERNELS:
+        check(counts[name] > 0, f"pipeline: {name} launched {counts[name]} "
+              "times")
+    target = float(np.hypot(*BENCH_UV))
+    check(abs(out["quantil"] - target) <= QUANTIL_TOL * target,
+          f"pipeline quantil {out['quantil']:.4f} within "
+          f"{QUANTIL_TOL:.0%} of {target:.4f}")
+    for key in ("sf_flow_err_px", "dt_flow_err_px"):
+        check(out[key] <= PIPELINE_ERR_TOL,
+              f"pipeline {key} {out[key]:.4f} <= {PIPELINE_ERR_TOL}")
+
+
+def _sharded_solve_child(out_path: Path) -> int:
+    """Phase 12's body, run in a child process: the bench-config slice
+    (batch 4, merged route) through variational_mt_batched on cuda:0, then
+    through variational_mt_sharded on [cuda:0, cuda:0] (two shards of 2 on
+    one card, on two streams) and, with more cards, on all of them; walls,
+    launches and the difference; then one two-shard call under
+    torch.profiler: whether K1 launches of the two shards overlap."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from slowflow_tpu_torch import kernels
+    from slowflow_tpu_torch.variational import fused_solve
+    from slowflow_tpu_torch.variational.multiframe import (
+        variational_mt_batched, variational_mt_sharded)
+
+    dev = torch.device("cuda:0")
+    p = bench_params()
+    b, h, w = 4, 270, 480
+    seq = _bench_scene(b, h, w, dev)
+    zero = torch.zeros((b, h, w), device=dev)
+
+    def timed(fn):
+        fn()                                       # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, dict(kernels.LAUNCHES)
+
+    want, wall, counts = timed(
+        lambda: variational_mt_batched(zero, zero, seq, p, device=dev))
+    rec = dict(batched=dict(wall_s=wall, launches=counts), plans={
+        f"B={n}": fused_solve.solve_plan(n, h, w)._asdict() for n in (2, 4)})
+    meshes = {"cuda:0 x2": [dev, dev]}
+    if torch.cuda.device_count() > 1:
+        meshes["all cards"] = [f"cuda:{i}"
+                               for i in range(torch.cuda.device_count())]
+    for name, mesh in meshes.items():
+        got, wall, counts = timed(lambda: variational_mt_sharded(
+            zero, zero, seq, p, mesh))
+        d = torch.hypot(got[0] - want[0], got[1] - want[1])
+        rec[name] = dict(
+            mesh=[str(m) for m in mesh], wall_s=wall, launches=counts,
+            bitwise=all(torch.equal(g, x) for g, x in zip(got, want)),
+            finite=bool(torch.isfinite(got[0]).all()
+                        & torch.isfinite(got[1]).all()),
+            flow_diff_median_px=float(d.median()),
+            flow_diff_mean_px=float(d.mean()),
+            flow_diff_max_px=float(d.max()),
+            label_share_differ=float((got[2] != want[2]).float().mean()),
+            flow_recovery_err_px=abs(float(got[0][0, 8:-8, 8:-8].median())
+                                     - 1.5))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        variational_mt_sharded(zero, zero, seq, p, [dev, dev])
+        torch.cuda.synchronize()
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in _kernel_events(prof) if "solve_kernel" in ev.name)
+    overlaps, end = 0, float("-inf")
+    for start, stop in spans:
+        overlaps += start < end
+        end = max(end, stop)
+    rec["k1_profile"] = dict(launches=len(spans), overlapping=overlaps)
+    out_path.write_text(json.dumps(rec, indent=1))
+    return 0
+
+
+def sharded_solve():
+    """The jet split on one card (phase 12), in a child process with its own
+    time limit, so that two cooperative K1 launches on two streams that
+    never finish fail this phase and not the run. The split must equal the
+    batched solve bitwise or within the slice tolerances."""
+    out = OUT_DIR / "sharded_solve.json"
+    out.unlink(missing_ok=True)
+    try:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--sharded-solve",
+             str(out)], capture_output=True, text=True, cwd=HERE,
+            timeout=SHARDED_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        print((e.stdout or b"")[-3000:], (e.stderr or b"")[-3000:])
+        check(False, f"sharded solve finished within {SHARDED_TIMEOUT_S} s")
+        return
+    print(proc.stdout[-3000:] + proc.stderr[-3000:])
+    check(proc.returncode == 0, f"sharded solve child exit code "
+          f"{proc.returncode}")
+    rec = json.loads(out.read_text())
+    RECORD["sharded_solve"] = rec
+    print(f"batched wall {rec['batched']['wall_s']:.3f} s; K1 plans "
+          f"{rec['plans']}; K1 under the profiler {rec['k1_profile']}")
+    for name in (k for k in rec if k.startswith(("cuda:0", "all"))):
+        r = rec[name]
+        print(f"{name} {r['mesh']}: wall {r['wall_s']:.3f} s, bitwise "
+              f"{r['bitwise']}, flow |d| median {r['flow_diff_median_px']:.2e}"
+              f" mean {r['flow_diff_mean_px']:.2e} max "
+              f"{r['flow_diff_max_px']:.2e} px, labels differ "
+              f"{r['label_share_differ']:.4%}, launches {r['launches']}")
+        check(r["finite"] and r["launches"]["solve_step"] > 0
+              and r["launches"]["warp_assemble"] > 0,
+              f"sharded solve {name}: finite, K1 and K2 launched")
+        check(r["bitwise"] or (
+            r["flow_diff_median_px"] <= FLOW_MEDIAN_TOL
+            and r["flow_diff_mean_px"] <= FLOW_MEAN_TOL
+            and r["label_share_differ"] <= LABEL_SHARE_TOL),
+            f"sharded solve {name} equals the batched solve bitwise or "
+            f"within the slice tolerances")
+        check(r["flow_recovery_err_px"] <= RECOVERY_TOL,
+              f"sharded solve {name} flow_recovery_err_px "
+              f"{r['flow_recovery_err_px']:.5f} <= {RECOVERY_TOL}")
+
+
 def main() -> int:
     import torch
 
@@ -1288,6 +1435,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(HERE))
     import slowflow_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    if sys.argv[1:2] == ["--sharded-solve"]:
+        return _sharded_solve_child(Path(sys.argv[2]))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1302,7 +1452,8 @@ def main() -> int:
     for fn in (build, kernels_vs_twins, route_kernels_vs_twins, slice_merged,
                slice_stack_composed, slice_unfused_pallas_warp,
                slice_profiles, cli_stage2, cli_stage2_epic, stage1,
-               epicflow_cli, stage3_final_pair, stage3_batched, cli_stage3):
+               epicflow_cli, stage3_final_pair, stage3_batched, cli_stage3,
+               pipeline, sharded_solve):
         phase(fn)
 
     kv = RECORD.get("kernels_vs_twins", {})
@@ -1353,6 +1504,11 @@ def main() -> int:
     for entry in line["kernels"][:2]:
         entry["cli_epic_launches"] = epic_run.get("launches", {}).get(
             entry["name"], 0)
+    # K1 / K2 / K5 launches on the three-stage pipeline run
+    pipe = RECORD.get("pipeline", {}).get("launches", {})
+    for entry in line["kernels"]:
+        if entry["name"] in PIPELINE_KERNELS:
+            entry["pipeline_launches"] = pipe.get(entry["name"], 0)
     # K3's other modes at the bench shape
     line["kernels"][2]["modes"] = {
         f"{r['mode']} zero_duv={r['zero_duv']}": dict(

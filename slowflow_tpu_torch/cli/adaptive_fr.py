@@ -91,6 +91,15 @@ def estimate_samples(im1s, im2s, edges_list, matches_list, device):
     return out
 
 
+def estimate_pair(im1, im2, edges=None, matches=None, *, device=None):
+    """One low-resolution EpicFlow estimate with the sintel presets: B = 1
+    of `estimate_samples`. im1 / im2 [3, H, W] in the 8-bit range; edges /
+    matches None means they are computed. `device`: None means CUDA (which
+    raises when torch finds no GPU). Returns flow [H, W, 2] (numpy)."""
+    return estimate_samples(np.asarray(im1)[None], np.asarray(im2)[None],
+                            [edges], [matches], resolve_device(device))[0]
+
+
 def run_folder(path, folder, fmt="%07i.tif", scale=0.25, skip=2, samples=40,
                sample_step=10, start=0, q=0.90, raw=False, sintel=False,
                subframes=False, overwrite=False, append="",

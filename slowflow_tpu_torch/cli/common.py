@@ -12,6 +12,7 @@ import torch
 from ..core.conv import gaussian_blur
 from ..core.image import resize_bilinear
 from ..io.images import read_image
+from ..runtime import resolve_device
 from ..utils.demosaic import (bayer2rgb, bayer2rgb_green_ratio,
                               bayer2rgb_hamilton_adams)
 
@@ -69,10 +70,13 @@ def gaussian_resize(img: np.ndarray, scale: float,
 
 
 def load_frame(path: str, params, scale: float, red_loc=(1, 0),
-               device: torch.device | str = "cpu",
+               device: torch.device | str | None = None,
                apply_scale: bool = True) -> np.ndarray:
-    """Read one frame, demosaic raw Bayer input, crop, rescale.
-    Returns planar float32 [3, H, W] in the native intensity range."""
+    """Read one frame, demosaic raw Bayer input, crop, rescale (the blur
+    and resize run on `device`; None means CUDA, as `resolve_device`
+    decides). Returns planar float32 [3, H, W] in the native intensity
+    range."""
+    device = resolve_device(device)
     img = read_image(path)
     raw = params.exists("raw") and params.parameter("raw", "0", bool)
     if raw and img.ndim == 2:
@@ -92,5 +96,5 @@ def load_frame(path: str, params, scale: float, red_loc=(1, 0),
     if ex > 0 or ey > 0:
         img = img[cy - ey // 2:cy + ey // 2, cx - ex // 2:cx + ex // 2]
     if apply_scale and scale != 1:
-        img = gaussian_resize(img, scale, torch.device(device))
+        img = gaussian_resize(img, scale, device)
     return np.ascontiguousarray(np.moveaxis(img, -1, 0), dtype=np.float32)

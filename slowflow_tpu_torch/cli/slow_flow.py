@@ -10,7 +10,9 @@ adaptive frame rates and the matcher's search radius, and for each jet solves
 the multi-frame variational energy forward and backward, writing Middlebury
 `.flo` files, occlusion `.pbm` maps, flow visualizations, `results.info` and
 a `config.cfg` snapshot with the sequence normalization statistics. Jets are
-solved `-batch` at a time as one batched call.
+solved `-batch` at a time as one batched call; with several CUDA devices a
+batch whose jets divide evenly over them is split across them
+(`variational_mt_sharded`).
 
 With `deep_matching 1` (the default) each solve starts from the EPIC
 initialization: Lab, saliency and edge maps of the whole window in batched
@@ -43,6 +45,7 @@ from ..epic.edges import detect_edges
 from ..epic.matching import grid_matches_batched
 from ..io import (read_edges, read_flo, read_matches, write_flo, write_image,
                   write_pbm)
+from ..parallel.mesh import make_mesh
 from ..runtime import resolve_device
 from ..utils.colorwheel import flow_color_img
 from ..utils.demosaic import raw_weighting
@@ -50,7 +53,8 @@ from ..utils.metrics import compute_epe
 from ..utils.phases import add as phase_add
 from ..utils.phases import phase
 from ..utils.phases import report as phase_report
-from ..variational.multiframe import variational_mt_batched
+from ..variational.multiframe import (variational_mt_batched,
+                                      variational_mt_sharded)
 from ..variational.params import MultiFrameParams
 from .common import frame_path, load_frame, unique_output_dir
 
@@ -168,8 +172,18 @@ def preprocess_frames(frames8: torch.Tensor, chunk: int = 64):
 
 
 def run(cfg_path: str, overwrite=False, resume=False, selected_fr=-1,
-        selected_jet=-1, threads=None, batch=1, device=None) -> int:
+        selected_jet=-1, threads=None, batch=1, device=None, *,
+        devices=None) -> int:
+    """The CLI's body. `devices`: the devices a jet group is split over
+    (`parallel.mesh.make_mesh`); by default every visible CUDA device when
+    `device` is CUDA and there are several, else none."""
     device = resolve_device(device)
+    if devices is not None:
+        mesh = make_mesh(devices=devices)
+    elif device.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh = make_mesh()
+    else:
+        mesh = None
     params = ParameterList()
     for k, v in DEFAULTS.items():
         params.insert(k, v, overwrite=True)
@@ -248,7 +262,7 @@ def run(cfg_path: str, overwrite=False, resume=False, selected_fr=-1,
             max_flow_j = max(5.0, 0.5 * max_flow_j)
         _run_one_rate(cfg, fmt, fmt_flow, start, steps, skip, scale, sintel,
                       resume, selected_jet, batch, device, enable_dm,
-                      max_flow_j, threads)
+                      max_flow_j, threads, mesh)
     print("Done!")
     return 0
 
@@ -260,7 +274,7 @@ def matcher_radius(max_flow: float) -> int:
 
 def _run_one_rate(cfg, fmt, fmt_flow, start, steps, skip, scale, sintel,
                   resume, selected_jet, batch, device, enable_dm=False,
-                  max_flow_j=50.0, threads=None):
+                  max_flow_j=50.0, threads=None, mesh=None):
     ref = steps
     jets = cfg.Jets
     frames = 1 + (jets + 2) * steps
@@ -459,10 +473,18 @@ def _run_one_rate(cfg, fmt, fmt_flow, start, steps, skip, scale, sintel,
                 wx0 = wy0 = torch.zeros((n, h, w), device=device)
             pb = MultiFrameParams(**{**p.__dict__, "one_direction": True}) \
                 if backward and one_direction else p
+            terms = (cw_dev.expand(n, 3, h, w), avg_dev.expand(n, 3),
+                     std_dev.expand(n, 3))
             with phase("sf.solve"):
-                wx, wy, occ = variational_mt_batched(
-                    wx0, wy0, windows, pb, cw_dev.expand(n, 3, h, w),
-                    avg_dev.expand(n, 3), std_dev.expand(n, 3), device=device)
+                # several devices: the group's jets split over them when
+                # they divide evenly (the JAX CLI's rule), else one batch
+                if mesh is not None and len(mesh) > 1 \
+                        and n % len(mesh) == 0:
+                    wx, wy, occ = variational_mt_sharded(
+                        wx0, wy0, windows, pb, mesh, *terms)
+                else:
+                    wx, wy, occ = variational_mt_batched(
+                        wx0, wy0, windows, pb, *terms, device=device)
                 wx = wx.cpu().numpy() * steps
                 wy = wy.cpu().numpy() * steps
                 occ = occ.cpu().numpy()

@@ -8,6 +8,7 @@ vertical weights wv (edge (j,i)-(j+1,i)); red = (row + col) % 2 == 0 first.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -67,4 +68,47 @@ def sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv,
     for _ in range(iterations):
         du, dv = half(du, dv, red)
         du, dv = half(du, dv, ~red)
+    return du, dv
+
+
+def sor_coupled_reference(du, dv, a11, a12, a22, b1, b2, wh, wv,
+                          iterations: int = 30, omega: float = 1.9):
+    """Sequential Gauss-Seidel oracle (solver.c:17-57): the same system
+    swept pixel by pixel in row order, in float64 NumPy. Slow; the tests'
+    fixed point for `sor_coupled_rb`. [H, W] arrays; returns (du, dv)."""
+    du = np.array(du, np.float64)
+    dv = np.array(dv, np.float64)
+    a11, a12, a22, b1, b2, wh, wv = (np.asarray(a) for a in
+                                     (a11, a12, a22, b1, b2, wh, wv))
+    h, w = du.shape
+    for _ in range(iterations):
+        for j in range(h):
+            for i in range(w):
+                sigma_u = sigma_v = sum_d = 0.0
+                if j > 0:
+                    sigma_u -= wv[j - 1, i] * du[j - 1, i]
+                    sigma_v -= wv[j - 1, i] * dv[j - 1, i]
+                    sum_d += wv[j - 1, i]
+                if i > 0:
+                    sigma_u -= wh[j, i - 1] * du[j, i - 1]
+                    sigma_v -= wh[j, i - 1] * dv[j, i - 1]
+                    sum_d += wh[j, i - 1]
+                if j < h - 1:
+                    sigma_u -= wv[j, i] * du[j + 1, i]
+                    sigma_v -= wv[j, i] * dv[j + 1, i]
+                    sum_d += wv[j, i]
+                if i < w - 1:
+                    sigma_u -= wh[j, i] * du[j, i + 1]
+                    sigma_v -= wh[j, i] * dv[j, i + 1]
+                    sum_d += wh[j, i]
+                A11 = a11[j, i] + sum_d
+                A12 = a12[j, i]
+                A22 = a22[j, i] + sum_d
+                det = A11 * A22 - A12 * A12
+                B1 = b1[j, i] - sigma_u
+                B2 = b2[j, i] - sigma_v
+                du[j, i] = ((1 - omega) * du[j, i]
+                            + omega * (A22 * B1 - A12 * B2) / det)
+                dv[j, i] = ((1 - omega) * dv[j, i]
+                            + omega * (-A12 * B1 + A11 * B2) / det)
     return du, dv

@@ -48,5 +48,5 @@ def sor_coupled_rb_pallas(du, dv, a11, a12, a22, b1, b2, wh, wv, *,
                                    ndu, ndv, scratch)), n_scratch,
         b, h, w, int(iterations), float(omega), kernels.stream_ptr(dev))
     kernels.check(err, "sor")
-    kernels.LAUNCHES["sor"] += 1
+    kernels.count_launch("sor")
     return ndu, ndv

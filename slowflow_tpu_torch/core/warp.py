@@ -45,3 +45,32 @@ def warp_bilinear(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
     out = (1.0 - dy) * top + dy * bot
     mask = ((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)).to(src.dtype)
     return out, mask
+
+
+def _warp_planes(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
+                 factor: float = 1.0):
+    """`warp_bilinear` of every [H, W] plane of src [..., H, W] by one flow
+    (wx, wy) [H, W]. Returns (warped [..., H, W], mask [H, W])."""
+    h, w = src.shape[-2:]
+    out, mask = warp_bilinear(src.reshape(-1, h, w), wx, wy, factor)
+    return out.reshape(src.shape), mask
+
+
+def warp_image(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor):
+    """Two-frame warp (variational_aux.c:18-52): src [..., H, W] sampled at
+    (x + wx, y + wy). Returns (warped, in-bounds mask [H, W])."""
+    return _warp_planes(src, wx, wy)
+
+
+def warp_backward(img: torch.Tensor, flow: torch.Tensor, scale: float = 1.0):
+    """Backward warp (utils/utils.cpp:286-306): img [..., H, W] sampled at
+    (x - scale*u, y - scale*v) for flow [H, W, 2]; pixels whose flow is
+    unknown, or whose sample falls outside the image, are zero."""
+    from ..io.flo import UNKNOWN_FLOW_THRESH
+
+    u, v = flow[..., 0], flow[..., 1]
+    known = (u.abs() <= UNKNOWN_FLOW_THRESH) & (v.abs() <= UNKNOWN_FLOW_THRESH)
+    zero = torch.zeros_like(u)
+    out, mask = _warp_planes(img, torch.where(known, -scale * u, zero),
+                             torch.where(known, -scale * v, zero))
+    return out * torch.where(known, mask, zero)

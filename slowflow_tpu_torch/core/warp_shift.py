@@ -65,5 +65,5 @@ def _warp_stack_cuda(seq, wx, wy, factors, identity: int, counter: str,
         kernels.ptr(masks), b, f, c, h, w, ctypes.c_void_p(fac.ctypes.data),
         int(identity), kernels.stream_ptr(dev))
     kernels.check(err, counter)
-    kernels.LAUNCHES[counter] += 1
+    kernels.count_launch(counter)
     return out, masks

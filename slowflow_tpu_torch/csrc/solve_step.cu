@@ -56,6 +56,7 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <mutex>
 
 #include "common.cuh"
 
@@ -453,40 +454,55 @@ void* kernel_of() {
   return (void*)solve_kernel<K5, RESIDENT>;
 }
 
-cudaError_t make_plan(bool k5, int B, int H, int W, Plan& p) {
-  static int nsm[MAX_DEVICES], optin[MAX_DEVICES], occ_stream[2][MAX_DEVICES];
+// The card's limits that a plan needs, read once per device.
+struct DeviceLimits {
+  cudaError_t err;
+  int nsm, optin, occ_stream[2];  // SMs, opt-in shared bytes, streaming blocks/SM
+};
+
+// The current device's limits. Shards call from several host threads at
+// once, so each device's entry is filled under its own std::call_once.
+const DeviceLimits* device_limits() {
+  static std::once_flag once[MAX_DEVICES];
+  static DeviceLimits limits[MAX_DEVICES];
+  static const DeviceLimits invalid{cudaErrorInvalidDevice, 0, 0, {0, 0}};
   int dev;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (nsm[dev] == 0) {
-    int n = 0, o = 0, s0 = 0, s1 = 0;
-    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)) ||
-        (err = cudaDeviceGetAttribute(&o, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) ||
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
+    return &invalid;
+  DeviceLimits* d = &limits[dev];
+  std::call_once(once[dev], [d, dev] {
+    cudaError_t err;
+    if ((err = cudaDeviceGetAttribute(&d->nsm, cudaDevAttrMultiProcessorCount, dev)) ||
+        (err = cudaDeviceGetAttribute(&d->optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                      dev)) ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &s0, solve_kernel<false, false>, NT_STREAMING, 0)) ||
+             &d->occ_stream[0], solve_kernel<false, false>, NT_STREAMING, 0)) ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &s1, solve_kernel<true, false>, NT_STREAMING, 0)))
-      return err;
-    optin[dev] = o;
-    occ_stream[0][dev] = s0;
-    occ_stream[1][dev] = s1;
-    nsm[dev] = n;
-  }
+             &d->occ_stream[1], solve_kernel<true, false>, NT_STREAMING, 0)))
+      d->err = err;
+    else
+      d->err = cudaSuccess;
+  });
+  return d;
+}
+
+cudaError_t make_plan(bool k5, int B, int H, int W, Plan& p) {
+  const DeviceLimits* d = device_limits();
+  if (d->err != cudaSuccess) return d->err;
   p.hwp = (W + 1) / 2;
   const int static_smem = 2 * NT_STREAMING * (int)sizeof(float);
-  p.smem_limit = optin[dev] - static_smem;
+  p.smem_limit = d->optin - static_smem;
   // resident: one band per block, one block per SM
-  int bpj = std::min(H, std::max(1, nsm[dev] / B));
+  int bpj = std::min(H, std::max(1, d->nsm / B));
   int rows = (H + bpj - 1) / bpj;
   p.smem = region_floats(rows, p.hwp) * sizeof(float);
-  p.resident = B * bpj <= nsm[dev] && p.smem <= (size_t)p.smem_limit;
+  p.resident = B * bpj <= d->nsm && p.smem <= (size_t)p.smem_limit;
   p.threads = p.resident ? NT_RESIDENT : NT_STREAMING;
   if (p.resident) {
     p.nbands = p.grid = B * bpj;
     p.region = 0;
   } else {
-    const int slots = occ_stream[k5][dev] * nsm[dev];
+    const int slots = d->occ_stream[k5] * d->nsm;
     if (slots < 1) return cudaErrorInvalidConfiguration;
     bpj = std::min(H, std::max(1, slots / B));
     rows = (H + bpj - 1) / bpj;
@@ -515,17 +531,18 @@ cudaError_t launch(bool k5, KernelArgs a, const Plan& p, float* scratch,
   void* kern = k5 ? (p.resident ? kernel_of<true, true>() : kernel_of<true, false>())
                   : (p.resident ? kernel_of<false, true>() : kernel_of<false, false>());
   if (p.resident) {
-    // raise the resident kernel's shared-memory limit once per device
-    static size_t raised[2][MAX_DEVICES];
+    // raise the resident kernel's shared-memory limit once per device (the
+    // plan came from device_limits, so the device index is valid)
+    static std::once_flag once[2][MAX_DEVICES];
+    static cudaError_t raised[2][MAX_DEVICES];
     int dev;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
-    if (raised[k5][dev] == 0) {
-      err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 p.smem_limit);
-      if (err != cudaSuccess) return err;
-      raised[k5][dev] = 1;
-    }
+    std::call_once(once[k5][dev], [&] {
+      raised[k5][dev] = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_limit);
+    });
+    if (raised[k5][dev] != cudaSuccess) return raised[k5][dev];
   }
   void* args[] = {&a};
   return cudaLaunchCooperativeKernel(kern, dim3(p.grid), dim3(p.threads), args,

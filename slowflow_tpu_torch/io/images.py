@@ -27,6 +27,12 @@ def read_image(path) -> np.ndarray:
     return arr.astype(np.float32)
 
 
+def is_16bit(path) -> bool:
+    """Whether the image file holds 16-bit (or wider) samples."""
+    with Image.open(path) as img:
+        return img.mode in ("I", "I;16", "I;16B", "I;16L", "F")
+
+
 def write_image(path, arr: np.ndarray, bit16: bool = False) -> None:
     """Write an image. arr is [H, W] or [H, W, 3]; clipped to dtype range."""
     arr = np.asarray(arr)

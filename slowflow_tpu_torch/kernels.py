@@ -65,14 +65,22 @@ _SIGNATURES = {
 
 # launches of each kernel wrapper; read and reset by callers that must show
 # a path went through the kernels. warp_stack and warp_stack_pallas are the
-# K4 and K6 entries of one kernel.
+# K4 and K6 entries of one kernel. Shards launch from several host threads,
+# so the counts change under a lock.
 LAUNCHES = {"warp_assemble": 0, "solve_step": 0, "fused_data": 0,
             "warp_stack": 0, "warp_stack_pallas": 0, "sor": 0}
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _sources() -> list[Path]:
@@ -162,6 +170,13 @@ def ptr(t: torch.Tensor | None):
 
 
 def stream_ptr(device: torch.device):
+    """The current stream of `device`, which must be the calling thread's
+    current CUDA device: the kernels launch on the current device."""
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise RuntimeError(f"launch for {device} while the current CUDA "
+                           f"device is cuda:{current}; enter "
+                           "torch.cuda.device(...) first")
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 

@@ -3,6 +3,8 @@ caller asks for the CPU; a CUDA path that finds no GPU raises, and nothing
 falls back to the CPU behind the caller's back."""
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -25,6 +27,14 @@ def device_of(x, device: str | torch.device | None = None) -> torch.device:
     if device is None and isinstance(x, torch.Tensor):
         return x.device
     return resolve_device(device)
+
+
+def on_device(device: torch.device):
+    """`torch.cuda.device(device)` for a CUDA device (the hand-written
+    kernels launch on the calling thread's current device), else a no-op."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def as_f32(x, device: torch.device) -> torch.Tensor:

@@ -6,6 +6,8 @@ Usage:
         ...
     report()            # prints the cumulative table when enabled
     totals()            # {name: (seconds, count)} without printing
+    with recording() as rec:   # rec: {name: (seconds, count)} of the block,
+        ...                    # with or without SF_PROF, report() or not
 
 Phases may be entered from several threads at once (the stage-2 CLI's EPIC
 prefetch thread beside the solve); the accumulators are updated under a
@@ -23,11 +25,12 @@ ENABLED = bool(int(os.environ.get("SF_PROF", "0") or "0"))
 _acc: dict = defaultdict(float)
 _cnt: dict = defaultdict(int)
 _lock = threading.Lock()
+_recorders: list[dict] = []
 
 
 @contextmanager
 def phase(name: str):
-    if not ENABLED:
+    if not (ENABLED or _recorders):
         yield
         return
     t0 = time.perf_counter()
@@ -38,10 +41,30 @@ def phase(name: str):
 
 
 def add(name: str, seconds: float):
-    if ENABLED:
-        with _lock:
+    if not (ENABLED or _recorders):
+        return
+    with _lock:
+        if ENABLED:
             _acc[name] += seconds
             _cnt[name] += 1
+        for rec in _recorders:
+            s, n = rec.get(name, (0.0, 0))
+            rec[name] = (s + seconds, n + 1)
+
+
+@contextmanager
+def recording():
+    """Time every phase of the block, whether SF_PROF is on or not, into
+    the dict it yields ({name: (seconds, count)}); `report()` and `reset()`
+    leave that dict alone."""
+    rec: dict = {}
+    with _lock:
+        _recorders.append(rec)
+    try:
+        yield rec
+    finally:
+        with _lock:
+            _recorders.remove(rec)
 
 
 def totals() -> dict:

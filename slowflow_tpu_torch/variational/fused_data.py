@@ -146,5 +146,5 @@ def _fused_data_cuda(warped, mask, du, dv, cw, p, mode, zero_duv):
         ctypes.c_void_p(params.ctypes.data), params.size,
         kernels.stream_ptr(dev))
     kernels.check(err, "fused_data")
-    kernels.LAUNCHES["fused_data"] += 1
+    kernels.count_launch("fused_data")
     return tuple(out.unbind(0))

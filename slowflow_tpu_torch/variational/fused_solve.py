@@ -68,10 +68,14 @@ class SolvePlan(NamedTuple):
     threads: int        # per block
 
 
-@functools.lru_cache(maxsize=256)
 def solve_plan(b: int, h: int, w: int, *, k5: bool = False) -> SolvePlan:
-    """The band plan of K1 (or K5) at [b, h, w] on the CUDA card (one card:
-    the plan is cached by shape)."""
+    """The band plan of K1 (or K5) at [b, h, w] on the current CUDA device
+    (cached by shape and device)."""
+    return _solve_plan(b, h, w, k5, torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=256)
+def _solve_plan(b: int, h: int, w: int, k5: bool, device_index: int):
     out = (ctypes.c_longlong * 8)()
     kernels.check(kernels.load().sf_solve_plan(int(k5), b, h, w, out),
                   "solve_plan")
@@ -109,5 +113,5 @@ def _solve_step_cuda(uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv, *,
         trunc_val,
         float(alpha), int(iterations), float(omega), kernels.stream_ptr(dev))
     kernels.check(err, "solve_step")
-    kernels.LAUNCHES["solve_step"] += 1
+    kernels.count_launch("solve_step")
     return (ndu, ndv, sums) if with_change else (ndu, ndv)

@@ -81,5 +81,5 @@ def _warp_assemble_cuda(seq, wx, wy, occ, du, dv, cw, p, mode, zero_duv):
         ctypes.c_void_p(params.ctypes.data), params.size,
         kernels.stream_ptr(dev))
     kernels.check(err, "warp_assemble")
-    kernels.LAUNCHES["warp_assemble"] += 1
+    kernels.count_launch("warp_assemble")
     return tuple(out.unbind(0))

@@ -36,7 +36,8 @@ from ..core.image import build_pyramid, pyramid_sizes, rescale_flow
 from ..core.solver_pallas import sor_coupled_rb_pallas
 from ..core.warp_pallas import warp_stack_pallas
 from ..core.warp_shift import warp_stack
-from ..runtime import as_f32, device_of
+from ..parallel.mesh import make_mesh, run_sharded
+from ..runtime import as_f32, device_of, on_device
 from .fused_data import fused_data_system
 from .fused_solve import solve_step
 from .fused_warp import warp_assemble
@@ -276,13 +277,48 @@ def variational_mt_batched(wx, wy, seq, p: MultiFrameParams, channel_w=None,
     b, f, _, h, w = seq.shape
     if f != 2 * p.ref + 1:
         raise ValueError(f"window of {f} frames does not match S = {p.S}")
+    channel_w, norm_avg, norm_std = _default_terms(
+        b, h, w, channel_w, norm_avg, norm_std, device)
+    with on_device(device):
+        return _mt_pipeline(wx, wy, seq, channel_w, norm_avg, norm_std, p)
+
+
+def _default_terms(b, h, w, channel_w, norm_avg, norm_std, device):
+    """channel_w [b, 3, h, w], norm_avg / norm_std [b, 3] on `device`; None
+    means ones, zeros and ones."""
     channel_w = torch.ones((b, 3, h, w), device=device) if channel_w is None \
         else as_f32(channel_w, device)
     norm_avg = torch.zeros((b, 3), device=device) if norm_avg is None \
         else as_f32(norm_avg, device)
     norm_std = torch.ones((b, 3), device=device) if norm_std is None \
         else as_f32(norm_std, device)
-    return _mt_pipeline(wx, wy, seq, channel_w, norm_avg, norm_std, p)
+    return channel_w, norm_avg, norm_std
+
+
+def variational_mt_sharded(wx, wy, seq, p: MultiFrameParams, mesh,
+                           channel_w=None, norm_avg=None, norm_std=None):
+    """`variational_mt_batched` with the jet batch split over the devices
+    of `mesh` (`parallel.mesh.make_mesh`): each device's contiguous chunk
+    runs `_mt_pipeline` on a host thread of its own (on CUDA inside
+    `torch.cuda.device(d)`, on a stream of its own), with the kernels as in
+    the batched call; jets share nothing, so only the placement differs.
+    The batch must divide evenly over the mesh. Inputs as for
+    `variational_mt_batched`; returns (wx, wy, occlusions) [B, H, W] on the
+    mesh's first device."""
+    mesh = make_mesh(devices=mesh)
+    device = mesh[0]
+    seq = as_f32(seq, device)
+    b, f, _, h, w = seq.shape
+    if f != 2 * p.ref + 1:
+        raise ValueError(f"window of {f} frames does not match S = {p.S}")
+    if b % len(mesh):
+        raise ValueError(f"batch of {b} jets does not split evenly over "
+                         f"{len(mesh)} devices")
+    channel_w, norm_avg, norm_std = _default_terms(
+        b, h, w, channel_w, norm_avg, norm_std, device)
+    return run_sharded(mesh, lambda *a: _mt_pipeline(*a, p),
+                       as_f32(wx, device), as_f32(wy, device), seq,
+                       channel_w, norm_avg, norm_std)
 
 
 def variational_mt(wx, wy, seq, p: MultiFrameParams, channel_w=None,

@@ -21,7 +21,7 @@ from ..core.conv import DERIV_3PT, DERIV_5PT, conv_horiz, conv_vert
 from ..core.image import luminance
 from ..core.solver_pallas import sor_coupled_rb_pallas
 from ..core.warp import warp_bilinear
-from ..runtime import as_f32, device_of
+from ..runtime import as_f32, device_of, on_device
 from .terms import _east, _fold, _south, sub_laplacian
 
 DATANORM = 0.1 * 0.1
@@ -177,8 +177,9 @@ def variational_twoframe_batched(wx, wy, im1, im2,
     device of `im1` if it is a tensor, else CUDA. Returns (wx, wy) tensors
     on that device."""
     device = device_of(im1, device)
-    return _refine(as_f32(wx, device), as_f32(wy, device),
-                   as_f32(im1, device), as_f32(im2, device), params)
+    with on_device(device):
+        return _refine(as_f32(wx, device), as_f32(wy, device),
+                       as_f32(im1, device), as_f32(im2, device), params)
 
 
 def variational_twoframe(wx, wy, im1, im2,

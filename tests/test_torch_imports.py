@@ -56,6 +56,9 @@ def test_cli_import_leaves_the_jax_package_out():
         import slowflow_tpu_torch.epic
         import slowflow_tpu_torch.native
         import slowflow_tpu_torch.variational.twoframe
+        import slowflow_tpu_torch.bench_pipeline
+        import slowflow_tpu_torch.parallel.mesh
+        import slowflow_tpu_torch.utils.tracing
         print(sorted(m for m in sys.modules
                      if m.split(".")[0] in ("slowflow_tpu", "bench", "jax")))
     """)

@@ -114,3 +114,18 @@ def test_cli_with_cpu_device_runs(no_gpu, tmp_path):
 
     assert main([str(_cli_cfg(tmp_path)), "-device", "cpu"]) == 0
     assert (tmp_path / "sf_out" / "frame_001.flo").exists()
+
+
+def test_load_frame_defaults_to_cuda(no_gpu, tmp_path):
+    """The CLIs' frame loader resizes on `device`, which defaults to CUDA
+    (it did default to the CPU); an explicit CPU device runs."""
+    from slowflow_tpu_torch.cli.common import load_frame
+    from slowflow_tpu_torch.config import ParameterList
+    from slowflow_tpu_torch.io import write_image
+
+    path = tmp_path / "f.png"
+    write_image(path, np.full((8, 12, 3), 100.0))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        load_frame(str(path), ParameterList(), 0.5)
+    img = load_frame(str(path), ParameterList(), 0.5, device="cpu")
+    assert img.shape == (3, 4, 6)
