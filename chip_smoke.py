@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: its kernels, the stage-2 jet
-solve, the EPIC init, every CLI, stage 3, the three-stage pipeline and the
-jet split over two shards.
+solve, the EPIC init, every CLI, stage 3, the three-stage pipeline, the
+jet split over two shards and the row split of one level over strips.
 
     python3 chip_smoke.py
 
@@ -80,7 +80,27 @@ Phases (any failure makes the script exit non-zero without the final line):
      [cuda:0, cuda:0] (and on every card when there are several) against
      variational_mt_batched: bitwise or within the slice tolerances, both
      walls, K1's plans at B = 2 and 4, and whether the two shards' K1
-     launches overlap under the profiler.
+     launches overlap under the profiler;
+ 13. sp_solve, in a child process (`--sp-solve PATH`) with its own 420 s
+     limit: sharded_jet_step's row split (parallel/strips.py) against the
+     unsharded compute_one_level on the same card. (a) The bench level
+     (270x480, B = 4, S = 3, 10 x 10 x 30, occlusion, bench scene, zero
+     flow) on meshes jet x sp = 1x2 and 2x2 of cuda:0 entries, on the
+     merged route (K2 + K1) and on the route the JAX sp path pins (banded
+     warp mode, no fused data: unfused, K4, with the composed solve, K5);
+     each launches its route's kernels and no other, and one profiled sp
+     call per route shows them; (b) one 2160x3840 level, B = 1, merged
+     route, rows in two on [cuda:0, cuda:0]. With several cards (a) adds
+     1x2 on two cards and 2x2 on four, (b) two cards; with one it prints
+     that the cross-card cases were skipped. The sp calls go through
+     sharded_jet_step(mesh, p, spatial_shard=True). Each case equals the
+     unsharded level bitwise or within the slice tolerances; both walls,
+     peak memory above the inputs, the ghost rows and their share of the
+     windows, launches, exchanges and widenings per call are recorded. In
+     the first 1x2 case of each route and in (b), the first call of each
+     of the route's kernel wrappers (K2 per mode), on the strip windows
+     with their rows table and on the whole image, is held against its
+     twin on the card (per-plane bound as in phase 2).
 Prints a JSON line with one entry per kernel (K3's also with its other
 modes' times at the bench shape), then
 {"ok": true, "device": {...}} as the last line. A detailed record goes to
@@ -1426,6 +1446,289 @@ def sharded_solve():
               f"{r['flow_recovery_err_px']:.5f} <= {RECOVERY_TOL}")
 
 
+SP_TIMEOUT_S = 420       # phase 13's own limit: a hang fails only it
+SP_ROUTES = {"merged": {},   # K2 + K1
+             # the JAX sp path's pinned route (banded warp mode, no fused
+             # data term): unfused here, K4, with the composed solve, K5
+             "pinned": dict(warp_mode="banded", fused_data=False,
+                            fused_solve=False)}
+SP_ROUTE_KERNELS = {"merged": {"warp_assemble", "solve_step"},
+                    "pinned": {"warp_stack", "sor"}}
+# multiframe's kernel wrappers on each route, held against their twins on
+# the inputs of their first call inside a level (K2: per mode)
+SP_WRAPPERS = {"merged": ("warp_assemble", "solve_step"),
+               "pinned": ("warp_stack", "sor_coupled_rb_pallas")}
+# the cases of phase 13 whose kernel calls are held against their twins
+SP_HELD = {"bench_level": ("merged 1x2", "pinned 1x2"),
+           "frame_2160": ("cuda:0 x2",)}
+
+
+@contextlib.contextmanager
+def _first_calls(names):
+    """While open, the inputs of the first call of each multiframe kernel
+    wrapper in `names` (K2: of each mode), tensors cloned, by wrapper."""
+    import torch
+
+    from slowflow_tpu_torch.variational import multiframe
+
+    calls: dict = {}
+
+    def copy(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            key = f"{name} {kw['mode']}" if "mode" in kw else name
+            if key not in calls:
+                calls[key] = (name, [copy(x) for x in a],
+                              {k: copy(v) for k, v in kw.items()})
+            return fn(*a, **kw)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in names:
+            stack.enter_context(mock.patch.object(
+                multiframe, name, wrap(name, getattr(multiframe, name))))
+        yield calls
+
+
+def _calls_vs_twins(calls, what) -> list:
+    """Each recorded wrapper call again through its kernel and through its
+    twin on the card, on the same inputs: the worst per-plane relative and
+    absolute error (`kernels_vs_twins`' measure)."""
+    import torch
+
+    from slowflow_tpu_torch.variational import multiframe
+
+    out = []
+    for key, (name, a, kw) in calls.items():
+        dev = next(x.device for x in a if isinstance(x, torch.Tensor))
+        with torch.cuda.device(dev):
+            got = getattr(multiframe, name)(*a, **kw)
+            want = twins()[name](*a, **kw)
+            torch.cuda.synchronize()
+        errs = [rel_err(g, t) for g, t in zip(got, want) if g is not None]
+        rows = next((x for x in [*a, *kw.values()] if hasattr(x, "img_h")),
+                    None)
+        out.append(dict(
+            wrapper=key, shape=list(a[0].shape), device=str(dev),
+            strip_rows=None if rows is None else dict(
+                table=rows.table.tolist(), img_h=rows.img_h),
+            rel_err=max(e[0] for e in errs), abs_err=max(e[1] for e in errs),
+            what=what))
+    return out
+
+
+def _sp_case(p, args, mesh, timed, hold=False):
+    """The unsharded level and the sp entry point `sharded_jet_step(mesh,
+    p, spatial_shard=True)` on `mesh` over the same inputs: walls, peak
+    memory, launches, the difference; then one `run_strips` call for the
+    plan's exchanges and windows. With `hold`, that call and one more
+    unsharded level record each kernel wrapper's first inputs, and each
+    such call is held against its twin."""
+    import torch
+
+    from slowflow_tpu_torch.parallel.mesh import sharded_jet_step
+    from slowflow_tpu_torch.parallel.strips import run_strips
+    from slowflow_tpu_torch.variational.multiframe import compute_one_level
+
+    b, h = args[2].shape[0], args[2].shape[3]
+    want, wall1, counts1, peak1 = timed(lambda: compute_one_level(*args,
+                                                                  p=p))
+    step = sharded_jet_step(mesh, p, spatial_shard=True)
+    got, wall, counts, peak = timed(lambda: step(*args))
+    route = "pinned" if p.route().solve != "fused" else "merged"
+    with _first_calls(SP_WRAPPERS[route] if hold else ()) as calls:
+        plan = run_strips(mesh, p, *args)[1]
+    held = _calls_vs_twins(calls, "sp windows") if hold else []
+    if hold:
+        with _first_calls(SP_WRAPPERS[route]) as calls:
+            compute_one_level(*args, p=p)
+        held += _calls_vs_twins(calls, "whole image")
+    geo = plan.geometry
+    d = torch.hypot(got[0] - want[0], got[1] - want[1])
+    return dict(
+        mesh=[str(m) for m in mesh], shape=mesh.shape, batch=b, height=h,
+        unsharded_wall_s=wall1, sp_wall_s=wall, wall_ratio=wall / wall1,
+        unsharded_peak_gib=peak1, sp_peak_gib=peak,
+        unsharded_launches=counts1, launches=counts,
+        exchanges=plan.exchanges, widenings=plan.widenings,
+        ghost=geo.ghost, cone=plan.cone, win_h=geo.win_h,
+        window_rows_over_image=mesh.n_sp * geo.win_h / h,
+        ghost_share=1 - h / (mesh.n_sp * geo.win_h),
+        bitwise=all(torch.equal(g, x) for g, x in zip(got, want)),
+        finite=bool(torch.isfinite(got[0]).all()
+                    & torch.isfinite(got[1]).all()),
+        flow_diff_median_px=float(d.median()),
+        flow_diff_mean_px=float(d.mean()), flow_diff_max_px=float(d.max()),
+        label_share_differ=float((got[2] != want[2]).float().mean()),
+        kernels_vs_twins=held)
+
+
+def _sp_solve_child(out_path: Path) -> int:
+    """Phase 13's body, run in a child process: (a) one bench level
+    (compute_one_level at 270x480, B = 4, S = 3, 10 x 10 x 30, occlusion,
+    the bench scene, zero flow) on the merged and the pinned route, rows
+    split over 1x2 and 2x2 meshes of cuda:0 entries (and 1x2 over two cards
+    and 2x2 over four when there are as many), against the unsharded level; one profiled sp
+    call per route; (b) one 2160x3840 level, B = 1, merged route, rows in
+    two on [cuda:0, cuda:0] (and on two cards when there are several). The
+    first 1x2 case of each route and of (b) holds the kernels' first calls
+    on the strip windows and on the whole image against their twins."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from slowflow_tpu_torch import kernels
+    from slowflow_tpu_torch.parallel.mesh import make_mesh, sharded_jet_step
+
+    dev = torch.device("cuda:0")
+    cards = torch.cuda.device_count()
+
+    def timed(fn):
+        fn()                                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        return out, wall, dict(kernels.LAUNCHES), peak
+
+    def level_inputs(b, h, w):
+        seq = _bench_scene(b, h, w, dev).float()
+        seq = (seq - seq.mean()) / seq.std()
+        zero = torch.zeros((b, h, w), device=dev)
+        return (zero, zero.clone(), seq,
+                torch.ones((b, 3, h, w), device=dev),
+                torch.zeros((b, 3), device=dev),
+                torch.ones((b, 3), device=dev))
+
+    rec = {"bench_level": {}, "frame_2160": {}, "cards": cards}
+    if cards == 1:
+        rec["cross_card"] = "skipped: torch sees 1 CUDA device"
+        print("sp across cards skipped: torch sees 1 CUDA device, so only "
+              "strips of one card ran", flush=True)
+    args = level_inputs(4, 270, 480)
+    for route, kw in SP_ROUTES.items():
+        p = bench_params(layers=1, **kw)
+        meshes = {f"{route} 1x2": [dev, dev], f"{route} 2x2": [dev] * 4}
+        if cards > 1:
+            meshes[f"{route} 1x2 cuda:0, cuda:1"] = [dev, "cuda:1"]
+        if cards > 3:
+            meshes[f"{route} 2x2 cuda:0-3"] = [f"cuda:{i}" for i in range(4)]
+        for name, devices in meshes.items():
+            rec["bench_level"][name] = _sp_case(
+                p, args, make_mesh(len(devices) // 2, 2, devices), timed,
+                hold=name in SP_HELD["bench_level"])
+        step = sharded_jet_step(make_mesh(1, 2, [dev, dev]), p,
+                                spatial_shard=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(*args)
+            torch.cuda.synchronize()
+        names = {}
+        for ev in _kernel_events(prof):
+            names[ev.name[:60]] = names.get(ev.name[:60], 0) + 1
+        rec["bench_level"][f"{route} profile"] = names
+    del args
+    torch.cuda.empty_cache()
+    args = level_inputs(1, 2160, 3840)
+    p = bench_params(layers=1)
+    meshes = {"cuda:0 x2": [dev, dev]}
+    if cards > 1:
+        meshes["cuda:0, cuda:1"] = [dev, torch.device("cuda:1")]
+    for name, devices in meshes.items():
+        rec["frame_2160"][name] = _sp_case(p, args, make_mesh(1, 2, devices),
+                                           timed,
+                                           hold=name in SP_HELD["frame_2160"])
+    out_path.write_text(json.dumps(rec, indent=1))
+    return 0
+
+
+def sp_solve():
+    """The sp row split of one level (phase 13) in a child process with its
+    own time limit. Every case must equal the unsharded level bitwise or
+    within the slice tolerances and launch its route's kernels and no
+    other; the profiler must show them inside the sp call."""
+    out = OUT_DIR / "sp_solve.json"
+    out.unlink(missing_ok=True)
+    try:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--sp-solve",
+             str(out)], capture_output=True, text=True, cwd=HERE,
+            timeout=SP_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        print((e.stdout or b"")[-3000:], (e.stderr or b"")[-3000:])
+        check(False, f"sp solve finished within {SP_TIMEOUT_S} s")
+        return
+    print(proc.stdout[-3000:] + proc.stderr[-3000:])
+    check(proc.returncode == 0, f"sp solve child exit code "
+          f"{proc.returncode}")
+    rec = json.loads(out.read_text())
+    RECORD["sp_solve"] = rec
+    if "cross_card" in rec:
+        print(f"sp across cards {rec['cross_card']}")
+    kernel_names = {"merged": ("warp_assemble_kernel", "solve_kernel"),
+                    "pinned": ("warp_stack_kernel", "solve_kernel")}
+    for part in ("bench_level", "frame_2160"):
+        for name in SP_HELD[part]:
+            r = rec[part].get(name, {})
+            route = "pinned" if name.startswith("pinned") else "merged"
+            for what in ("sp windows", "whole image"):
+                held = [t for t in r.get("kernels_vs_twins", [])
+                        if t["what"] == what]
+                wrappers = {t["wrapper"].split()[0] for t in held}
+                check(wrappers == set(SP_WRAPPERS[route]) and all(
+                    (t["strip_rows"] is not None) == (what == "sp windows")
+                    for t in held),
+                      f"sp {part} {name}: {sorted(wrappers)} held against "
+                      f"their twins on the {what}")
+                for t in held:
+                    check(t["rel_err"] <= REL_TOL,
+                          f"sp {part} {name} {what}: {t['wrapper']} "
+                          f"{t['shape']} against its twin, rel err "
+                          f"{t['rel_err']:.2e} (abs {t['abs_err']:.2e})")
+        for name, r in rec[part].items():
+            if name.endswith("profile"):
+                route = name.split()[0]
+                seen = {k for k in r if any(n in k for n in kernel_names[
+                    route])}
+                print(f"{name}: {r}")
+                check(all(any(n in k for k in seen)
+                          for n in kernel_names[route]),
+                      f"sp {name}: the profiler shows "
+                      f"{' + '.join(kernel_names[route])} in the sp call")
+                continue
+            route = "pinned" if name.startswith("pinned") else "merged"
+            used = {k for k, v in r["launches"].items() if v > 0}
+            print(f"sp {part} {name}: unsharded {r['unsharded_wall_s']:.3f} s"
+                  f" / {r['unsharded_peak_gib']:.3f} GiB, sp "
+                  f"{r['sp_wall_s']:.3f} s / {r['sp_peak_gib']:.3f} GiB "
+                  f"({r['wall_ratio']:.2f}x); ghost {r['ghost']} (cone "
+                  f"{r['cone']}), windows of {r['win_h']} rows, ghost share "
+                  f"{r['ghost_share']:.3f}; {r['exchanges']} exchanges, "
+                  f"{r['widenings']} widenings; launches {r['launches']}; "
+                  f"bitwise {r['bitwise']}, flow |d| median "
+                  f"{r['flow_diff_median_px']:.2e} mean "
+                  f"{r['flow_diff_mean_px']:.2e} max "
+                  f"{r['flow_diff_max_px']:.2e} px, labels differ "
+                  f"{r['label_share_differ']:.4%}")
+            check(r["finite"] and used == SP_ROUTE_KERNELS[route]
+                  and r["exchanges"] > 0,
+                  f"sp {part} {name}: finite, launched {sorted(used)} (the "
+                  f"{route} route's {sorted(SP_ROUTE_KERNELS[route])} and no "
+                  f"other), {r['exchanges']} exchanges")
+            check(r["bitwise"] or (
+                r["flow_diff_median_px"] <= FLOW_MEDIAN_TOL
+                and r["flow_diff_mean_px"] <= FLOW_MEAN_TOL
+                and r["label_share_differ"] <= LABEL_SHARE_TOL),
+                f"sp {part} {name} equals the unsharded level bitwise or "
+                f"within the slice tolerances")
+
+
 def main() -> int:
     import torch
 
@@ -1438,6 +1741,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--sharded-solve"]:
         return _sharded_solve_child(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--sp-solve"]:
+        return _sp_solve_child(Path(sys.argv[2]))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1453,7 +1758,7 @@ def main() -> int:
                slice_stack_composed, slice_unfused_pallas_warp,
                slice_profiles, cli_stage2, cli_stage2_epic, stage1,
                epicflow_cli, stage3_final_pair, stage3_batched, cli_stage3,
-               pipeline, sharded_solve):
+               pipeline, sharded_solve, sp_solve):
         phase(fn)
 
     kv = RECORD.get("kernels_vs_twins", {})
@@ -1509,6 +1814,13 @@ def main() -> int:
     for entry in line["kernels"]:
         if entry["name"] in PIPELINE_KERNELS:
             entry["pipeline_launches"] = pipe.get(entry["name"], 0)
+    # launches inside phase 13's sp calls (K1 / K2 merged, K4 / K5 pinned)
+    for entry in line["kernels"]:
+        entry["sp_launches"] = {
+            f"{part} {case}": r["launches"][entry["name"]]
+            for part in ("bench_level", "frame_2160")
+            for case, r in RECORD.get("sp_solve", {}).get(part, {}).items()
+            if r.get("launches", {}).get(entry["name"], 0)}
     # K3's other modes at the bench shape
     line["kernels"][2]["modes"] = {
         f"{r['mode']} zero_duv={r['zero_duv']}": dict(

@@ -1,8 +1,9 @@
-"""Run chip_smoke.py, or the bench-config slice alone, in turns on a parent
-tree and on this tree, on one card.
+"""Run chip_smoke.py, the bench-config slice alone, or K1 / K2 / K4 / K5
+alone, in turns on a parent tree and on this tree, on one card.
 
     python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR [--rounds N]
     python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR --slice REPS [--rounds N]
+    python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR --kernels REPS [--rounds N]
 
 PARENT_DIR holds an unpacked tree of the commit to compare with (for
 example `git archive HEAD | tar -x -C _archive/parent`, a directory that
@@ -25,12 +26,22 @@ config, batch 4, 270x480, the scene of this tree's bench_scene.py) once to
 warm up and REPS times on the clock, then once under torch.profiler for
 the device busy time; it prints the median and every wall time, and the
 idle share against the median.
+
+With --kernels, each turn is a fresh process that imports that tree's
+slowflow_tpu_torch and times, on the same seeded inputs at 4 x 270 x 480
+(K4: the 4 x 5 x 3 window), K1 `solve_step` (smoothing 1, zero start,
+change sums, 30 sweeps), K2 `warp_assemble` (`assembly` and `occ_assembly`,
+zero du / dv), K4 `warp_stack` (a bench-like flow) and K5
+`sor_coupled_rb_pallas` (30 sweeps), each by CUDA events over REPS calls
+after a warm-up and by the profiler's device time
+(`kernel_variants.device_ms`); the last line holds the medians per tree.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import shutil
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -150,8 +161,63 @@ print(json.dumps(dict(walls=walls, median_s=statistics.median(walls),
 """
 
 
-def run_slice(tree: Path, tag: str, n: int, reps: int) -> dict:
-    code = SLICE.format(tree=str(tree), reps=reps, scene=str(
+KERNELS = """
+import json, sys
+sys.path.insert(0, {tree!r})
+import numpy as np, torch
+from slowflow_tpu_torch.core.solver_pallas import sor_coupled_rb_pallas
+from slowflow_tpu_torch.core.warp_shift import warp_stack
+from slowflow_tpu_torch.kernel_variants import device_ms
+from slowflow_tpu_torch.variational.fused_solve import solve_step
+from slowflow_tpu_torch.variational.fused_warp import warp_assemble
+from slowflow_tpu_torch.variational.params import MultiFrameParams
+dev, (b, h, w) = torch.device("cuda"), (4, 270, 480)
+rng = np.random.default_rng(0)
+def planes(n, scale=1.0, shift=0.0):
+    return [torch.tensor(rng.normal(0, scale, (b, h, w)) + shift,
+                         dtype=torch.float32, device=dev) for _ in range(n)]
+p = MultiFrameParams(S=3, rho=(1.0, 1.0), omega=(0.0, 2.0), smoothing=1)
+reg = p.penalties()[2]
+uu, vv, b1, b2 = planes(4)
+dpsis, a11, a22, wh, wv = (x.abs() * 0.5 + 0.2 for x in planes(5))
+a12, du, dv = planes(3, 0.1)
+seq = torch.tensor(rng.random((b, 5, 3, h, w)) * 255, dtype=torch.float32,
+                   device=dev)
+wx, wy = planes(2, 1.5, 0.5)
+cw = torch.ones((b, 3, h, w), device=dev)
+occ = planes(1)[0].sign()
+calls = {{
+    "K1 solve_step": lambda: solve_step(
+        uu, vv, dpsis, a11, a12, a22, b1, b2, alpha=4.0, reg_pen=reg,
+        method=1, iterations=30, omega=1.9, with_change=True),
+    "K2 warp_assemble": lambda: warp_assemble(
+        seq, wx, wy, occ, None, None, cw, p, mode="assembly", zero_duv=True),
+    "K2 occ_assembly": lambda: warp_assemble(
+        seq, wx, wy, None, None, None, cw, p, mode="occ_assembly",
+        zero_duv=True),
+    "K4 warp_stack": lambda: warp_stack(seq, wx, wy, 2),
+    "K5 sor": lambda: sor_coupled_rb_pallas(
+        du, dv, a11, a12, a22, b1, b2, wh, wv, iterations=30, omega=1.9),
+}}
+out = {{}}
+for name, fn in calls.items():
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range({reps}):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    out[name] = dict(ms=start.elapsed_time(end) / {reps},
+                     device_ms=device_ms(fn))
+print(json.dumps(out))
+"""
+
+
+def run_slice(tree: Path, tag: str, n: int, reps: int,
+              template: str = SLICE) -> dict:
+    code = template.format(tree=str(tree), reps=reps, scene=str(
         HERE / "slowflow_tpu_torch" / "bench_scene.py"))
     proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
                           capture_output=True, text=True, timeout=900)
@@ -183,6 +249,9 @@ def main(argv=None) -> int:
     ap.add_argument("--slice", type=int, default=0, metavar="REPS",
                     help="time the merged slice REPS times per turn instead "
                          "of running chip_smoke.py")
+    ap.add_argument("--kernels", type=int, default=0, metavar="REPS",
+                    help="time K1 / K2 / K4 / K5 over REPS calls per turn "
+                         "instead of running chip_smoke.py")
     args = ap.parse_args(argv)
     out = _out_dir() / "ab"
     out.mkdir(parents=True, exist_ok=True)
@@ -194,10 +263,23 @@ def main(argv=None) -> int:
     for r in range(args.rounds):
         for tag in ("parent", "change", "change", "parent"):
             tree = args.parent.resolve() if tag == "parent" else HERE
-            lines.append(run_slice(tree, tag, len(lines), args.slice)
-                         if args.slice else run(tree, tag, len(lines), out))
-    name = "slice_summary.json" if args.slice else "summary.json"
-    (out / name).write_text(json.dumps(dict(card=smi, runs=lines), indent=1))
+            if args.kernels:
+                lines.append(run_slice(tree, tag, len(lines), args.kernels,
+                                       KERNELS))
+            elif args.slice:
+                lines.append(run_slice(tree, tag, len(lines), args.slice))
+            else:
+                lines.append(run(tree, tag, len(lines), out))
+    record = dict(card=smi, runs=lines)
+    if args.kernels and all(line["rc"] == 0 for line in lines):
+        record["median"] = {tree: {k: {m: statistics.median(
+            line[k][m] for line in lines if line["tree"] == tree)
+            for m in ("ms", "device_ms")} for k in lines[0] if " " in k}
+            for tree in ("parent", "change")}
+        print(json.dumps(record["median"]))
+    name = "kernels_summary.json" if args.kernels else \
+        "slice_summary.json" if args.slice else "summary.json"
+    (out / name).write_text(json.dumps(record, indent=1))
     return 0 if all(line["rc"] == 0 for line in lines) else 1
 
 

@@ -4,13 +4,17 @@ loop inside the K1 kernel (csrc/solve_step.cu).
 
 Solves [a11 + S, a12; a12, a22 + S] [du; dv] = [b1 + sum w_n du_n; b2 + ...]
 over the 4-neighbourhood with horizontal weights wh (edge (j,i)-(j,i+1)) and
-vertical weights wv (edge (j,i)-(j+1,i)); red = (row + col) % 2 == 0 first.
+vertical weights wv (edge (j,i)-(j+1,i)); red = (row + col) % 2 == 0 first,
+the row counted in the image when `rows` places [E, H, W] strip windows in
+it (parallel/strips.py).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .rows import red_cells
 
 
 def shift0(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
@@ -29,7 +33,7 @@ def checkerboard(h: int, w: int, device) -> torch.Tensor:
 
 
 def sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv,
-                   iterations: int = 30, omega: float = 1.9):
+                   iterations: int = 30, omega: float = 1.9, rows=None):
     """All inputs [..., H, W] float32. The last column of wh and the last row
     of wv are ignored (boundary). Returns updated (du, dv)."""
     h, w = du.shape[-2:]
@@ -50,7 +54,8 @@ def sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv,
     i11 = A22 / det
     i12 = -a12 / det
     i22 = A11 / det
-    red = checkerboard(h, w, du.device)
+    red = checkerboard(h, w, du.device) if rows is None \
+        else red_cells(rows, h, w, du.device)
 
     def half(du, dv, mask):
         su = (w_n * shift0(du, -1, 0) + w_w * shift0(du, 0, -1)

@@ -19,12 +19,15 @@ from .solver import sor_coupled_rb
 
 
 def sor_coupled_rb_pallas(du, dv, a11, a12, a22, b1, b2, wh, wv, *,
-                          iterations: int = 30, omega: float = 1.9):
+                          iterations: int = 30, omega: float = 1.9,
+                          rows=None):
     """All planes [..., H, W] float32; du, dv are the starting increment.
-    Returns new (du, dv); the inputs are left as they were."""
+    `rows` (core/rows.py `StripRows`, planes [E, H, W]): strip
+    windows, coloured by the image's rows. Returns new (du, dv); the inputs
+    are left as they were."""
     if du.device.type == "cpu":
         return sor_coupled_rb(du, dv, a11, a12, a22, b1, b2, wh, wv,
-                              iterations=iterations, omega=omega)
+                              iterations=iterations, omega=omega, rows=rows)
     if du.device.type != "cuda":
         raise ValueError(f"sor_coupled_rb_pallas: unsupported device "
                          f"{du.device}")
@@ -38,6 +41,7 @@ def sor_coupled_rb_pallas(du, dv, a11, a12, a22, b1, b2, wh, wv, *,
     for name, t in named.items():
         kernels.require_f32_cuda(name, t, shape, dev)
     b = du.numel() // (h * w)
+    kernels.require_rows(rows, b, h, dev)
     ndu = torch.empty_like(du)
     ndv = torch.empty_like(dv)
     n_scratch = solve_plan(b, h, w, k5=True).scratch_floats
@@ -46,7 +50,8 @@ def sor_coupled_rb_pallas(du, dv, a11, a12, a22, b1, b2, wh, wv, *,
     err = lib.sf_sor_coupled_rb(
         *(kernels.ptr(t) for t in (du, dv, a11, a12, a22, b1, b2, wh, wv,
                                    ndu, ndv, scratch)), n_scratch,
-        b, h, w, int(iterations), float(omega), kernels.stream_ptr(dev))
+        kernels.rows_ptr(rows), b, h, w, int(iterations), float(omega),
+        kernels.stream_ptr(dev))
     kernels.check(err, "sor")
     kernels.count_launch("sor")
     return ndu, ndv

@@ -5,20 +5,37 @@ Sample src at (x + factor*wx, y + factor*wy); each corner index is clamped to
 the image on its own; the mask is 1 iff the continuous coordinate lies in
 [0, W-1] x [0, H-1]. The JAX package's banded one-hot form is a TPU
 workaround for slow gathers and has no counterpart here.
+
+With `rows` (core/rows.py `StripRows`) src and the flow are windows of
+taller images: row i of window e is image row row0_e + i, the corners are
+clamped and the mask taken against the image's rows, and a corner outside
+the window reads the window's nearest row (the strip plan sizes windows so
+that no sample with a nonzero weight that matters does).
 """
 from __future__ import annotations
 
 import torch
 
+from .rows import row_offsets
+
 
 def warp_bilinear(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
-                  factor: float = 1.0):
+                  factor: float = 1.0, rows=None):
     """Warp `src` [..., C, H, W] by the flow (wx, wy) [..., H, W] scaled by
-    `factor`; the flow's leading dims must match src's before C.
+    `factor`; the flow's leading dims must match src's before C. `rows`:
+    the windows' places in their image (flow [E, H, W], module docstring).
 
     Returns (warped [..., C, H, W], mask [..., H, W] float32)."""
     h, w = src.shape[-2:]
-    yy = torch.arange(h, device=src.device, dtype=wx.dtype)[:, None]
+    img_h = h if rows is None else rows.img_h
+    yy = torch.arange(h, device=src.device)[:, None]
+    if rows is not None:
+        if wx.dim() != 3 or wx.shape[0] != rows.table.shape[0]:
+            raise ValueError(f"rows for {rows.table.shape[0]} windows, flow "
+                             f"{tuple(wx.shape)}")
+        row0 = row_offsets(rows)
+        yy = row0 + yy
+    yy = yy.to(wx.dtype)
     xx = torch.arange(w, device=src.device, dtype=wx.dtype)[None, :]
     x = xx + factor * wx
     y = yy + factor * wy
@@ -30,8 +47,11 @@ def warp_bilinear(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
     y0i = y0.long()
     x0c = x0i.clamp(0, w - 1)
     x1c = (x0i + 1).clamp(0, w - 1)
-    y0c = y0i.clamp(0, h - 1)
-    y1c = (y0i + 1).clamp(0, h - 1)
+    y0c = y0i.clamp(0, img_h - 1)
+    y1c = (y0i + 1).clamp(0, img_h - 1)
+    if rows is not None:
+        y0c = (y0c - row0).clamp(0, h - 1)
+        y1c = (y1c - row0).clamp(0, h - 1)
 
     flat = src.flatten(-2)                                  # [..., C, H*W]
 
@@ -43,7 +63,8 @@ def warp_bilinear(src: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,
     top = (1.0 - dx) * corner(y0c, x0c) + dx * corner(y0c, x1c)
     bot = (1.0 - dx) * corner(y1c, x0c) + dx * corner(y1c, x1c)
     out = (1.0 - dy) * top + dy * bot
-    mask = ((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)).to(src.dtype)
+    mask = ((x >= 0) & (x <= w - 1) & (y >= 0)
+            & (y <= img_h - 1)).to(src.dtype)
     return out, mask
 
 

@@ -16,21 +16,23 @@ from .warp import warp_bilinear
 from .warp_shift import _warp_stack_cuda
 
 
-def warp_stack_pallas(seq, wx, wy, factors):
-    """seq [B, F, C, H, W], wx, wy [B, H, W], factors: F floats.
+def warp_stack_pallas(seq, wx, wy, factors, rows=None):
+    """seq [B, F, C, H, W], wx, wy [B, H, W], factors: F floats; `rows` as
+    for K4 (core/warp_shift.py `warp_stack`).
     Returns (warped [B, F, C, H, W], masks [B, F, H, W])."""
     factors = [float(f) for f in factors]
     if seq.device.type == "cpu":
-        return warp_stack_pallas_ref(seq, wx, wy, factors)
+        return warp_stack_pallas_ref(seq, wx, wy, factors, rows)
     if seq.device.type != "cuda":
         raise ValueError(f"warp_stack_pallas: unsupported device "
                          f"{seq.device}")
-    return _warp_stack_cuda(seq, wx, wy, factors, -1, "warp_stack_pallas")
+    return _warp_stack_cuda(seq, wx, wy, factors, -1, "warp_stack_pallas",
+                            rows=rows)
 
 
-def warp_stack_pallas_ref(seq, wx, wy, factors):
+def warp_stack_pallas_ref(seq, wx, wy, factors, rows=None):
     """Plain PyTorch twin of K6's entry (any device)."""
-    pairs = [warp_bilinear(seq[:, k], wx, wy, float(f))
+    pairs = [warp_bilinear(seq[:, k], wx, wy, float(f), rows)
              for k, f in enumerate(factors)]
     return (torch.stack([o for o, _ in pairs], 1),
             torch.stack([m for _, m in pairs], 1))

@@ -22,25 +22,28 @@ from ..variational.terms import warp_window_frames
 MAXF = 16          # frames the kernel takes per call
 
 
-def warp_stack(seq, wx, wy, ref: int):
+def warp_stack(seq, wx, wy, ref: int, rows=None):
     """Warp window frame k by factor (k - ref); frame ref passes through
-    with an all-ones mask. seq [B, F, 3, H, W], wx, wy [B, H, W].
+    with an all-ones mask. seq [B, F, 3, H, W], wx, wy [B, H, W]. `rows`
+    (core/rows.py `StripRows`): strip windows, clamped and masked
+    against the image's rows.
     Returns (warped [B, F, 3, H, W], masks [B, F, H, W])."""
     if seq.device.type == "cpu":
-        return warp_stack_ref(seq, wx, wy, ref)
+        return warp_stack_ref(seq, wx, wy, ref, rows)
     if seq.device.type != "cuda":
         raise ValueError(f"warp_stack: unsupported device {seq.device}")
     factors = [float(k - ref) for k in range(seq.shape[1])]
-    return _warp_stack_cuda(seq, wx, wy, factors, ref, "warp_stack")
+    return _warp_stack_cuda(seq, wx, wy, factors, ref, "warp_stack",
+                            rows=rows)
 
 
-def warp_stack_ref(seq, wx, wy, ref: int):
+def warp_stack_ref(seq, wx, wy, ref: int, rows=None):
     """Plain PyTorch twin of the K4 kernel (any device)."""
-    return warp_window_frames(seq, wx, wy, ref)
+    return warp_window_frames(seq, wx, wy, ref, rows)
 
 
 def _warp_stack_cuda(seq, wx, wy, factors, identity: int, counter: str,
-                     with_mask: bool = True):
+                     with_mask: bool = True, rows=None):
     """Launch csrc/warp_stack.cu on seq [B, F, C, H, W] with per-frame
     `factors` (F floats); frame `identity` (or none, -1) is copied. Counts
     one launch under LAUNCHES[counter]."""
@@ -55,6 +58,7 @@ def _warp_stack_cuda(seq, wx, wy, factors, identity: int, counter: str,
     kernels.require_f32_cuda("seq", seq, (b, f, c, h, w), dev)
     kernels.require_f32_cuda("wx", wx, (b, h, w), dev)
     kernels.require_f32_cuda("wy", wy, (b, h, w), dev)
+    kernels.require_rows(rows, b, h, dev)
     out = torch.empty_like(seq)
     masks = torch.empty((b, f, h, w), dtype=torch.float32, device=dev) \
         if with_mask else None
@@ -63,7 +67,8 @@ def _warp_stack_cuda(seq, wx, wy, factors, identity: int, counter: str,
     err = lib.sf_warp_stack(
         kernels.ptr(seq), kernels.ptr(wx), kernels.ptr(wy), kernels.ptr(out),
         kernels.ptr(masks), b, f, c, h, w, ctypes.c_void_p(fac.ctypes.data),
-        int(identity), kernels.stream_ptr(dev))
+        int(identity), kernels.rows_ptr(rows),
+        h if rows is None else rows.img_h, kernels.stream_ptr(dev))
     kernels.check(err, counter)
     kernels.count_launch(counter)
     return out, masks

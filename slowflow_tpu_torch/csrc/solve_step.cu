@@ -16,6 +16,10 @@
 // (sum |ndu - du|, sum |ndv - dv|) for the caller's convergence test. K5 takes
 // the weights as given (zeroing wh's last column and wv's last row), the RHS
 // as given, and runs the same sweeps from du, dv.
+// Strip windows (slowflow_tpu_torch/parallel/strips.py): an optional int32
+// table rows[B][3] gives each jet entry's first image row, whose parity
+// shifts the colours (red = (image row + col) % 2 == 0), and its own rows
+// [lo, hi), the only rows K1's change sums count. Null: whole images.
 //
 // What bounds it on an H100: not bytes (~21 MB in and out at 4 x 270 x 480,
 // ~6 us at 3.35 TB/s) nor flops (~0.5 GFLOP for 30 sweeps, ~7 us at 67
@@ -126,6 +130,7 @@ struct KernelArgs {
   const float *wh_in, *wv_in;          // K5: the given weights
   const float *du0, *dv0;              // start (null: zero)
   float *ndu, *ndv, *sums;             // outputs (sums may be null)
+  const int* rows;                     // [B][3] strip windows, or null
   uint4* xch;                          // [nbands][edge][colour][hwp]
   float* partials;                     // [nbands][2]
   float* regions;                      // streaming: [nbands][region]
@@ -141,9 +146,10 @@ __host__ __device__ inline size_t region_floats(int rows, int hwp) {
   return (size_t)2 * hwp * (9 * rows + 5);
 }
 
-// One band of rows of one jet, its packed arrays and its neighbours.
+// One band of rows of one jet, its packed arrays and its neighbours. par is
+// the parity of the jet entry's first image row; [lo, hi) its own rows.
 struct Band {
-  int b, i0, rows, id;
+  int b, i0, rows, id, par, lo, hi;
   bool above, below;
   float *du, *dv, *wv, *wh, *r1, *r2, *i11, *i12, *i22;
 };
@@ -161,6 +167,9 @@ __device__ Band band_at(const KernelArgs& a, int id, float* R, int H) {
   d.rows = (int)((long long)(kb + 1) * H / a.bpj) - d.i0;
   d.above = kb > 0;
   d.below = kb < a.bpj - 1;
+  d.par = a.rows ? a.rows[3 * d.b] & 1 : 0;
+  d.lo = a.rows ? a.rows[3 * d.b + 1] : 0;
+  d.hi = a.rows ? a.rows[3 * d.b + 2] : H;
   const size_t row = 2 * (size_t)a.hwp;
   d.du = R + row;  R += (d.rows + 2) * row;
   d.dv = R + row;  R += (d.rows + 2) * row;
@@ -185,7 +194,7 @@ __device__ void prologue(const KernelArgs& a, const Band& d) {
   // pass 1: wh of the band's rows, wv of its rows and the row above
   for (int idx = threadIdx.x; idx < (d.rows + 1) * W; idx += blockDim.x) {
     const int lr = idx / W - 1, j = idx % W, i = d.i0 + lr;
-    const int c = (i + j) & 1, k = j >> 1;
+    const int c = (i + j + d.par) & 1, k = j >> 1;
     float wh = 0.f, wv = 0.f;
     if (i >= 0) {
       if (K5) {
@@ -205,7 +214,7 @@ __device__ void prologue(const KernelArgs& a, const Band& d) {
   // starting values of the halo rows (zero outside the image)
   for (int idx = threadIdx.x; idx < 2 * W; idx += blockDim.x) {
     const int lr = idx < W ? -1 : d.rows, j = idx % W, i = d.i0 + lr;
-    const int c = (i + j) & 1, k = j >> 1;
+    const int c = (i + j + d.par) & 1, k = j >> 1;
     const bool in = i >= 0 && i < H && a.du0;
     const size_t q = off + (size_t)(in ? i : 0) * W + j;
     d.du[at(lr, c, k, hwp)] = in ? a.du0[q] : 0.f;
@@ -215,7 +224,7 @@ __device__ void prologue(const KernelArgs& a, const Band& d) {
   // pass 2: per cell, with the west / north neighbours' weights
   for (int idx = threadIdx.x; idx < d.rows * W; idx += blockDim.x) {
     const int lr = idx / W, j = idx % W, i = d.i0 + lr;
-    const int c = (i + j) & 1, k = j >> 1, o = at(lr, c, k, hwp);
+    const int c = (i + j + d.par) & 1, k = j >> 1, o = at(lr, c, k, hwp);
     const size_t p = (size_t)i * W + j, q = off + p;
     const float we = d.wh[o], ws = d.wv[o];
     const float ww = j > 0 ? d.wh[at(lr, c ^ 1, (j - 1) >> 1, hwp)] : 0.f;
@@ -267,7 +276,7 @@ __device__ void half_sweep(const Band& d, int W, int hwp, int c, float omega,
       if (++m >= n) break;
     }
     const int lr = r0 + m * step;
-    const int off = (d.i0 + lr + c) & 1, j = 2 * k + off;
+    const int off = (d.i0 + d.par + lr + c) & 1, j = 2 * k + off;
     if (j >= W) continue;
     const int o = at(lr, c, k, hwp), x = at(lr, c ^ 1, 0, hwp);
     const int no = at(lr - 1, c ^ 1, k, hwp), so = at(lr + 1, c ^ 1, k, hwp);
@@ -379,11 +388,12 @@ __device__ void epilogue(const KernelArgs& a, const Band& d) {
   float au = 0.f, av = 0.f;
   for (int idx = threadIdx.x; idx < d.rows * W; idx += blockDim.x) {
     const int lr = idx / W, j = idx % W, i = d.i0 + lr;
-    const int o = at(lr, (i + j) & 1, j >> 1, a.hwp);
+    const int o = at(lr, (i + j + d.par) & 1, j >> 1, a.hwp);
     const size_t q = off + (size_t)i * W + j;
     const float u = d.du[o], v = d.dv[o];
     a.ndu[q] = u;
     a.ndv[q] = v;
+    if (i < d.lo || i >= d.hi) continue;
     au += fabsf(u - (a.du0 ? a.du0[q] : 0.f));
     av += fabsf(v - (a.du0 ? a.dv0[q] : 0.f));
   }
@@ -566,16 +576,17 @@ extern "C" int sf_solve_plan(int k5, int B, int H, int W, long long* out) {
 }
 
 // K1: the whole solve step in one cooperative launch on `stream`. du / dv may
-// be null (start from zero); sums may be null (no change sums). scratch holds
-// at least sf_solve_plan's scratch floats. Returns a cudaError_t code
-// (0 = launched).
+// be null (start from zero); sums may be null (no change sums); rows may be
+// null (whole images; else the strip table above). scratch holds at least
+// sf_solve_plan's scratch floats. Returns a cudaError_t code (0 = launched).
 extern "C" int sf_solve_step(const float* uu, const float* vv,
                              const float* dpsis, const float* a11,
                              const float* a12, const float* a22,
                              const float* b1, const float* b2, const float* du,
                              const float* dv, float* ndu, float* ndv,
                              float* scratch, long long scratch_floats,
-                             float* sums, int B, int H, int W, int method,
+                             float* sums, const int* rows, int B, int H,
+                             int W, int method,
                              int reg_fct, float reg_eps_sq, float reg_trunc,
                              float reg_trunc_val, float alpha, int iterations,
                              float omega, void* stream) {
@@ -592,6 +603,7 @@ extern "C" int sf_solve_step(const float* uu, const float* vv,
   a.ndu = ndu;
   a.ndv = ndv;
   a.sums = sums;
+  a.rows = rows;
   a.B = B;
   a.iterations = iterations;
   a.omega = omega;
@@ -602,15 +614,17 @@ extern "C" int sf_solve_step(const float* uu, const float* vv,
 // cooperative launch: the prologue zeroes wh's last column and wv's last row
 // and forms the 2x2 inverse with the neighbour-weight sum in core/solver.py's
 // order; the sweeps start from du / dv, which are read only, and end in
-// ndu / ndv. Every plane is [B, H, W]. scratch holds at least sf_solve_plan's
-// scratch floats (k5 = 1). Returns a cudaError_t code (0 = launched).
+// ndu / ndv. Every plane is [B, H, W]; rows: the strip table (colours only)
+// or null. scratch holds at least sf_solve_plan's scratch floats (k5 = 1).
+// Returns a cudaError_t code (0 = launched).
 extern "C" int sf_sor_coupled_rb(const float* du, const float* dv,
                                  const float* a11, const float* a12,
                                  const float* a22, const float* b1,
                                  const float* b2, const float* wh,
                                  const float* wv, float* ndu, float* ndv,
                                  float* scratch, long long scratch_floats,
-                                 int B, int H, int W, int iterations,
+                                 const int* rows, int B, int H, int W,
+                                 int iterations,
                                  float omega, void* stream) {
   if (B < 1 || H < 1 || W < 1 || iterations < 0 || !du || !dv)
     return (int)cudaErrorInvalidValue;
@@ -631,6 +645,7 @@ extern "C" int sf_sor_coupled_rb(const float* du, const float* dv,
   a.dv0 = dv;
   a.ndu = ndu;
   a.ndv = ndv;
+  a.rows = rows;
   a.B = B;
   a.iterations = iterations;
   a.omega = omega;

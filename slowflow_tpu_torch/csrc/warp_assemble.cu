@@ -36,6 +36,12 @@
 // frame, times the occlusion gate in assembly mode. The tile stays 32 x 16
 // (1.875x halo): a taller tile needs more threads or more state per thread,
 // and either breaks the two-blocks-per-SM register budget.
+// Strip windows (slowflow_tpu_torch/parallel/strips.py): with a table
+// rows[B][3] the window's row i is image row row0 + i of an image of img_h
+// rows; the warp's corners are clamped and its mask taken against the
+// image's rows, and a corner outside the window reads the window's nearest
+// row (the plan sizes windows so that no sample that matters does). The
+// halo tile stays clamped to the window: its error lies in the ghost rows.
 // Warp coordinates use __fmul_rn/__fadd_rn so that floor() sees the same
 // rounded x = j + fac * wx as the plain version (no FMA contraction there);
 // elsewhere nvcc's FMA contraction makes results differ from the twin in
@@ -46,13 +52,16 @@ using namespace sf;
 
 namespace {
 
-template <int MODE, bool ZERO_DUV>
+// STRIP: the strip table is given (rows, img_h); else whole images, with
+// none of its index work.
+template <int MODE, bool ZERO_DUV, bool STRIP>
 __global__ void __launch_bounds__(NT, MODE == MODE_OCC ? 3 : 2) warp_assemble_kernel(
     const float* __restrict__ seq, const float* __restrict__ wx,
     const float* __restrict__ wy, const float* __restrict__ occ,
     const float* __restrict__ du, const float* __restrict__ dv,
-    const float* __restrict__ cw, float* __restrict__ out, int B, int H,
-    int W, AsmParams P) {
+    const float* __restrict__ cw, float* __restrict__ out,
+    const int* __restrict__ rows, int img_h, int B, int H, int W,
+    AsmParams P) {
   extern __shared__ float smem[];
   const int ref = P.ref, F = 2 * ref + 1;
   float* frames = smem;                  // [F][3][LH][LW]
@@ -66,6 +75,8 @@ __global__ void __launch_bounds__(NT, MODE == MODE_OCC ? 3 : 2) warp_assemble_ke
   const float* fxp = wx + b * HW;
   const float* fyp = wy + b * HW;
   const float* win = seq + (size_t)b * F * 3 * HW;
+  const int row0 = STRIP ? rows[3 * b] : 0;
+  const int ih = STRIP ? img_h : H;  // the image's rows
 
   // ---- load phase: the reference tile by cp.async, the others warped ----
   for (int idx = tid; idx < 3 * LH * LW; idx += NT) {
@@ -86,13 +97,17 @@ __global__ void __launch_bounds__(NT, MODE == MODE_OCC ? 3 : 2) warp_assemble_ke
       if (k == ref) continue;
       const float fac = (float)(k - ref);
       const float x = __fadd_rn((float)gx, __fmul_rn(fac, fx));
-      const float y = __fadd_rn((float)gy, __fmul_rn(fac, fy));
+      const float y = __fadd_rn((float)(gy + row0), __fmul_rn(fac, fy));
       const float xf = floorf(x), yf = floorf(y);
       const float dx = x - xf, dy = y - yf;
       const int xi = (int)fminf(fmaxf(xf, -1.f), (float)W);
-      const int yi = (int)fminf(fmaxf(yf, -1.f), (float)H);
+      const int yi = (int)fminf(fmaxf(yf, -1.f), (float)ih);
       const int xa = clampi(xi, 0, W - 1), xb = clampi(xi + 1, 0, W - 1);
-      const int ya = clampi(yi, 0, H - 1), yb = clampi(yi + 1, 0, H - 1);
+      int ya = clampi(yi, 0, ih - 1), yb = clampi(yi + 1, 0, ih - 1);
+      if (STRIP) {
+        ya = clampi(ya - row0, 0, H - 1);
+        yb = clampi(yb - row0, 0, H - 1);
+      }
       const float* src = win + (size_t)k * 3 * HW;
       float* dst = frames + (size_t)k * 3 * LH * LW + r;
       for (int c = 0; c < 3; ++c) {
@@ -122,9 +137,9 @@ __global__ void __launch_bounds__(NT, MODE == MODE_OCC ? 3 : 2) warp_assemble_ke
     const int km = s < ref ? s : s + 1;
     const float facm = (float)(km - ref);
     const float xm = __fadd_rn((float)gx, __fmul_rn(facm, fx));
-    const float ym = __fadd_rn((float)gy, __fmul_rn(facm, fy));
+    const float ym = __fadd_rn((float)(gy + row0), __fmul_rn(facm, fy));
     float m = (xm >= 0.f && xm <= (float)(W - 1) && ym >= 0.f &&
-               ym <= (float)(H - 1)) ? 1.f : 0.f;
+               ym <= (float)(ih - 1)) ? 1.f : 0.f;
     if (MODE == MODE_ASSEMBLY) m *= s < ref ? gate_b : gate_f;
     return m;
   };
@@ -136,26 +151,30 @@ __global__ void __launch_bounds__(NT, MODE == MODE_OCC ? 3 : 2) warp_assemble_ke
 
 // params: N_PARAMS host floats, laid out by
 // slowflow_tpu_torch/variational/fused_data.py `kernel_params`.
-// out: [n_out, B, H, W]. Returns a cudaError_t code (0 = launched).
+// out: [n_out, B, H, W]. rows: the strip table above, or null (img_h = H).
+// Returns a cudaError_t code (0 = launched).
 extern "C" int sf_warp_assemble(const float* seq, const float* wx,
                                 const float* wy, const float* occ,
                                 const float* du, const float* dv,
-                                const float* cw, float* out, int B, int H,
-                                int W, int mode, int zero_duv,
+                                const float* cw, float* out, const int* rows,
+                                int img_h, int B, int H, int W, int mode,
+                                int zero_duv,
                                 const float* params, int n_params,
                                 void* stream) {
   AsmParams P;
-  if (!parse_params(params, n_params, P)) return (int)cudaErrorInvalidValue;
+  if (!parse_params(params, n_params, P) || img_h < H || (!rows && img_h != H))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = tile_smem_bytes(2 * P.ref + 1);
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B), block(TW, TH);
   cudaStream_t st = (cudaStream_t)stream;
   return (int)dispatch_mode(mode, zero_duv, [&](auto m, auto z) {
-    auto kern = warp_assemble_kernel<decltype(m)::value, decltype(z)::value>;
+    auto kern = rows ? warp_assemble_kernel<decltype(m)::value, decltype(z)::value, true>
+                     : warp_assemble_kernel<decltype(m)::value, decltype(z)::value, false>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    kern<<<grid, block, smem, st>>>(seq, wx, wy, occ, du, dv, cw, out, B, H,
-                                    W, P);
+    kern<<<grid, block, smem, st>>>(seq, wx, wy, occ, du, dv, cw, out, rows,
+                                    img_h, B, H, W, P);
     return cudaGetLastError();
   });
 }
@@ -165,7 +184,7 @@ extern "C" int sf_warp_assemble(const float* seq, const float* wx,
 extern "C" int sf_warp_assemble_occupancy(int mode, int zero_duv, int ref, int* out) {
   if (ref < 1 || 2 * ref > MAXN) return (int)cudaErrorInvalidValue;
   return (int)dispatch_mode(mode, zero_duv, [&](auto m, auto z) {
-    return kernel_occupancy(warp_assemble_kernel<decltype(m)::value, decltype(z)::value>,
+    return kernel_occupancy(warp_assemble_kernel<decltype(m)::value, decltype(z)::value, false>,
                             tile_smem_bytes(2 * ref + 1), out);
   });
 }

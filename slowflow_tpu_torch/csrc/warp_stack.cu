@@ -30,6 +30,10 @@
 // stores where rows are 16-byte aligned (W % 4 == 0). Corner gathers
 // take the read-only path (__ldg); stores stay cacheable, since K3 reads the
 // warped stack next on the stack route and it fits the 50 MB L2.
+// Strip windows (slowflow_tpu_torch/parallel/strips.py): with a table
+// rows[B][3] row i of jet b's window is image row rows[b][0] + i of an image
+// of img_h rows; corners are clamped and masks taken against the image's
+// rows, then a corner outside the window reads its nearest row.
 // Coordinates and the interpolation use __fmul_rn / __fadd_rn, the twin's
 // rounding without FMA contraction, so the result equals the twin's bit for
 // bit; floor(x) is clamped to [-1, W] before the int conversion so a large
@@ -89,18 +93,22 @@ __device__ __forceinline__ void fill_ones(float* __restrict__ m, int x0,
 }
 
 // CF: the channel count when fixed at compile time (3), else 0 (runtime C).
-template <int CF>
+// STRIP: the strip table is given (rows, img_h); else whole images, with
+// none of its index work.
+template <int CF, bool STRIP>
 __global__ void __launch_bounds__(NT) warp_stack_kernel(
     const float* __restrict__ src, const float* __restrict__ wx,
     const float* __restrict__ wy, float* __restrict__ out,
     float* __restrict__ masks, int F, int C_, int H, int W, Factors fac,
-    int identity, bool vec) {
+    int identity, bool vec, const int* __restrict__ rows, int img_h) {
   const int C = CF ? CF : C_;
   const size_t HW = (size_t)H * W;
   const int b = blockIdx.z, x0 = blockIdx.x * TILE_W;
   const int i = blockIdx.y * TY + (int)threadIdx.y;
   if (i >= H) return;
   const size_t row = (size_t)i * W;
+  const int row0 = STRIP ? __ldg(rows + 3 * b) : 0;
+  const int ih = STRIP ? img_h : H;  // the image's rows
   float fx[PIX], fy[PIX];
 #pragma unroll
   for (int q = 0; q < PIX; ++q) {
@@ -124,17 +132,23 @@ __global__ void __launch_bounds__(NT) warp_stack_kernel(
       const int j = x0 + (int)threadIdx.x + TX * q;
       if (j >= W) continue;
       const float x = __fadd_rn((float)j, __fmul_rn(f, fx[q]));
-      const float y = __fadd_rn((float)i, __fmul_rn(f, fy[q]));
+      const float y = __fadd_rn((float)(i + row0), __fmul_rn(f, fy[q]));
       const float xf = floorf(x), yf = floorf(y);
       const float dx = x - xf, dy = y - yf;
       const float ex = 1.f - dx, ey = 1.f - dy;
       const int xi = (int)fminf(fmaxf(xf, -1.f), (float)W);
-      const int yi = (int)fminf(fmaxf(yf, -1.f), (float)H);
+      const int yi = (int)fminf(fmaxf(yf, -1.f), (float)ih);
       const int xa = sf::clampi(xi, 0, W - 1), xb = sf::clampi(xi + 1, 0, W - 1);
-      const int ya = sf::clampi(yi, 0, H - 1) * W, yb = sf::clampi(yi + 1, 0, H - 1) * W;
+      int ya = sf::clampi(yi, 0, ih - 1), yb = sf::clampi(yi + 1, 0, ih - 1);
+      if (STRIP) {
+        ya = sf::clampi(ya - row0, 0, H - 1);
+        yb = sf::clampi(yb - row0, 0, H - 1);
+      }
+      ya *= W;
+      yb *= W;
       if (m)
-        m[j] = (x >= 0.f && x <= (float)(W - 1) && y >= 0.f && y <= (float)(H - 1))
-                   ? 1.f : 0.f;
+        m[j] = (x >= 0.f && x <= (float)(W - 1) && y >= 0.f &&
+                y <= (float)(ih - 1)) ? 1.f : 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const float* p = s + c * HW;
@@ -152,11 +166,15 @@ template <int CF>
 cudaError_t launch(const float* src, const float* wx, const float* wy,
                    float* out, float* masks, int B, int F, int C, int H,
                    int W, const Factors& fac, int identity, bool vec,
-                   cudaStream_t st) {
+                   const int* rows, int img_h, cudaStream_t st) {
   const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TY - 1) / TY, B),
       block(TX, TY);
-  warp_stack_kernel<CF><<<grid, block, 0, st>>>(src, wx, wy, out, masks, F, C,
-                                                H, W, fac, identity, vec);
+  if (rows)
+    warp_stack_kernel<CF, true><<<grid, block, 0, st>>>(
+        src, wx, wy, out, masks, F, C, H, W, fac, identity, vec, rows, img_h);
+  else
+    warp_stack_kernel<CF, false><<<grid, block, 0, st>>>(
+        src, wx, wy, out, masks, F, C, H, W, fac, identity, vec, rows, img_h);
   return cudaGetLastError();
 }
 
@@ -164,14 +182,16 @@ cudaError_t launch(const float* src, const float* wx, const float* wy,
 
 // src [B, F, C, H, W], wx / wy [B, H, W], factors: F host floats (F <= 16);
 // out [B, F, C, H, W], masks [B, F, H, W] or null. identity: the frame
-// copied unwarped, or -1. Returns a cudaError_t code (0 = launched).
+// copied unwarped, or -1. rows: the strip table above, or null (img_h = H).
+// Returns a cudaError_t code (0 = launched).
 extern "C" int sf_warp_stack(const float* src, const float* wx,
                              const float* wy, float* out, float* masks,
                              int B, int F, int C, int H, int W,
                              const float* factors, int identity,
-                             void* stream) {
+                             const int* rows, int img_h, void* stream) {
   if (B < 1 || F < 1 || F > MAXF || C < 1 || H < 1 || W < 1 ||
-      identity >= F || B > 65535 || (size_t)H * W > 0x7fffffffu)
+      identity >= F || B > 65535 || (size_t)H * W > 0x7fffffffu ||
+      img_h < H || (!rows && img_h != H))
     return (int)cudaErrorInvalidValue;
   Factors fac = {};
   for (int k = 0; k < F; ++k) fac.f[k] = factors[k];
@@ -180,19 +200,19 @@ extern "C" int sf_warp_stack(const float* src, const float* wx,
                                   reinterpret_cast<uintptr_t>(masks)) % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(C == 3 ? launch<3>(src, wx, wy, out, masks, B, F, C, H, W, fac,
-                                  identity, vec, st)
+                                  identity, vec, rows, img_h, st)
                       : launch<0>(src, wx, wy, out, masks, B, F, C, H, W, fac,
-                                  identity, vec, st));
+                                  identity, vec, rows, img_h, st));
 }
 
 // out[0..2] = resident blocks per SM, registers per thread, spill bytes per
 // thread of the warp kernel (three channels).
 extern "C" int sf_warp_stack_occupancy(int* out) {
   cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, warp_stack_kernel<3>);
+  cudaError_t err = cudaFuncGetAttributes(&fa, warp_stack_kernel<3, false>);
   if (err != cudaSuccess) return (int)err;
   out[1] = fa.numRegs;
   out[2] = (int)fa.localSizeBytes;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &out[0], warp_stack_kernel<3>, NT, 0);
+      &out[0], warp_stack_kernel<3, false>, NT, 0);
 }

@@ -183,7 +183,8 @@ def _k1(lib, b, h, w, iterations, dev):
     def call():
         kernels.check(lib.sf_solve_step(
             *(ptr(x) for x in (*t, None, None, ndu, ndv, scratch)), plan[6],
-            ptr(sums), b, h, w, 1, int(fct), eps_sq, trunc, trunc_val, 4.0,
+            ptr(sums), None, b, h, w, 1, int(fct), eps_sq, trunc, trunc_val,
+            4.0,
             iterations, 1.9, stream), "sf_solve_step")
     return device_ms(call)
 
@@ -222,7 +223,8 @@ def _k2(lib, dev):
     def call():
         kernels.check(lib.sf_warp_assemble(
             ptr(seq), ptr(wx), ptr(wy), ptr(occ), None, None, ptr(cw),
-            ptr(out), b, h, w, 0, 1, ctypes.c_void_p(params.ctypes.data),
+            ptr(out), None, h, b, h, w, 0, 1,
+            ctypes.c_void_p(params.ctypes.data),
             params.size, stream), "sf_warp_assemble")
     return device_ms(call)
 
@@ -268,7 +270,7 @@ def _k4(lib, dev, with_mask, identity):
     def call():
         kernels.check(lib.sf_warp_stack(
             ptr(seq), ptr(wx), ptr(wy), ptr(out), ptr(masks), b, f, c, h, w,
-            ctypes.c_void_p(fac.ctypes.data), identity, stream),
+            ctypes.c_void_p(fac.ctypes.data), identity, None, h, stream),
             "sf_warp_stack")
     return device_ms(call)
 

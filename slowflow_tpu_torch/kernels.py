@@ -38,29 +38,30 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # seq, wx, wy, occ, du, dv, cw, out, B, H, W, mode, zero_duv,
-    # params (host), n_params, stream
-    "sf_warp_assemble": [_P] * 8 + [_I] * 5 + [_P, _I, _P],
+    # seq, wx, wy, occ, du, dv, cw, out, rows, img_h, B, H, W, mode,
+    # zero_duv, params (host), n_params, stream
+    "sf_warp_assemble": [_P] * 9 + [_I] * 6 + [_P, _I, _P],
     # uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv, ndu, ndv, scratch,
-    # scratch_floats, sums, B, H, W, method, reg_fct, reg_eps_sq, reg_trunc,
-    # reg_trunc_val, alpha, iterations, omega, stream
-    "sf_solve_step": [_P] * 13 + [_L, _P] + [_I] * 5 + [_F] * 4
+    # scratch_floats, sums, rows, B, H, W, method, reg_fct, reg_eps_sq,
+    # reg_trunc, reg_trunc_val, alpha, iterations, omega, stream
+    "sf_solve_step": [_P] * 13 + [_L, _P, _P] + [_I] * 5 + [_F] * 4
                      + [_I, _F, _P],
     # k5, B, H, W, out (8 int64: the band plan of K1 / K5)
     "sf_solve_plan": [_I] * 4 + [_P],
     # warped, mask, du, dv, cw, out, B, H, W, mode, zero_duv,
     # params (host), n_params, stream
     "sf_fused_data": [_P] * 6 + [_I] * 5 + [_P, _I, _P],
-    # src, wx, wy, out, masks, B, F, C, H, W, factors (host), identity, stream
-    "sf_warp_stack": [_P] * 5 + [_I] * 5 + [_P, _I, _P],
+    # src, wx, wy, out, masks, B, F, C, H, W, factors (host), identity,
+    # rows, img_h, stream
+    "sf_warp_stack": [_P] * 5 + [_I] * 5 + [_P, _I, _P, _I, _P],
     # mode, zero_duv, ref, out (3 int: blocks per SM, registers, spill bytes)
     "sf_warp_assemble_occupancy": [_I] * 3 + [_P],
     "sf_fused_data_occupancy": [_I] * 3 + [_P],
     # out (3 int: blocks per SM, registers, spill bytes)
     "sf_warp_stack_occupancy": [_P],
     # du, dv, a11, a12, a22, b1, b2, wh, wv, ndu, ndv, scratch,
-    # scratch_floats, B, H, W, iterations, omega, stream
-    "sf_sor_coupled_rb": [_P] * 12 + [_L] + [_I] * 4 + [_F, _P],
+    # scratch_floats, rows, B, H, W, iterations, omega, stream
+    "sf_sor_coupled_rb": [_P] * 12 + [_L, _P] + [_I] * 4 + [_F, _P],
 }
 
 # launches of each kernel wrapper; read and reset by callers that must show
@@ -178,6 +179,28 @@ def stream_ptr(device: torch.device):
                            f"device is cuda:{current}; enter "
                            "torch.cuda.device(...) first")
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_rows(rows, b: int, h: int, device) -> None:
+    """Raise unless `rows` is None or a core/rows.py `StripRows` for b
+    windows of h rows on `device`: a contiguous int32 [b, 3] table of first
+    image rows and own-row ranges inside [0, h), and an image at least h
+    rows tall."""
+    if rows is None:
+        return
+    t = rows.table
+    if t.device != device or t.dtype != torch.int32 \
+            or tuple(t.shape) != (b, 3) or not t.is_contiguous():
+        raise ValueError(f"rows: expected a contiguous int32 [{b}, 3] table "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    if rows.img_h < h:
+        raise ValueError(f"rows: image of {rows.img_h} rows < window {h}")
+
+
+def rows_ptr(rows):
+    """The device pointer of a `StripRows` table, or None."""
+    return None if rows is None else ptr(rows.table)
 
 
 def require_f32_cuda(name: str, t: torch.Tensor, shape, device) -> None:

@@ -1,20 +1,26 @@
-"""The jet split over devices (torch port of `slowflow_tpu.parallel.mesh`).
+"""Device meshes for the jet split and the row split (torch port of
+`slowflow_tpu.parallel.mesh`).
 
-Jets share nothing, so a batch of jet windows splits into one contiguous
-chunk per device and each chunk is solved where it lies: pure data
-parallelism, the reference's OpenMP-over-jets loop (slow_flow.cpp:706) across
-cards. A mesh is an ordered list of `torch.device`s; one device may appear
-more than once (two shards on one card, or on the CPU in the tests).
+A mesh is n_jet x n_sp devices, row-major (`Mesh`, a list with the sp
+extent attached); one device may appear more than once (two shards on one
+card, or CPU entries in the tests).
 
-Each shard runs on its own host thread. On CUDA the thread enters
-`torch.cuda.device(d)` and a stream of its own before its first launch (the
-kernels launch on the thread's current device and stream), waits for the
-caller's stream that staged its inputs, and synchronizes its stream before it
-hands back its outputs. The outputs are gathered, in order, on the mesh's
-first device.
+`jet` axis: jets share nothing, so a batch of jet windows splits into one
+contiguous chunk per mesh row and each chunk is solved where it lies: pure
+data parallelism, the reference's OpenMP-over-jets loop (slow_flow.cpp:706)
+across cards (`run_sharded`). Each shard runs on its own host thread. On
+CUDA the thread enters `torch.cuda.device(d)` and a stream of its own before
+its first launch (the kernels launch on the thread's current device and
+stream), waits for the caller's stream that staged its inputs, and
+synchronizes its stream before it hands back its outputs. The outputs are
+gathered, in order, on the mesh's first device.
 
-The JAX package's second mesh axis, `sp` (image rows split over devices with
-halos), is not ported: ROADMAP Queue 1 keeps it as the last module.
+`sp` axis: each jet's image rows split into n_sp contiguous strips over a
+mesh row, each computed on a window with ghost rows that the level
+refreshes from their owners (parallel/strips.py). The JAX package leaves
+the halos to XLA and pins its slowest route for it; here every route runs
+on its own kernels. `sharded_jet_step(mesh, p, spatial_shard=True)` is that
+path, for one level, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -22,8 +28,24 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-SP_NOT_PORTED = ("spatial (sp) row-sharding is not ported (ROADMAP Queue 1, "
-                 "the sp row-sharding of sharded_jet_step); use n_sp=1")
+from .strips import run_strips, strip_bounds
+
+
+class Mesh(list):
+    """The devices of an n_jet x n_sp mesh, row-major: row j holds jet
+    chunk j's strips."""
+
+    def __init__(self, devices, n_sp: int = 1):
+        super().__init__(devices)
+        self.n_sp = n_sp
+
+    @property
+    def n_jet(self) -> int:
+        return len(self) // self.n_sp
+
+    @property
+    def shape(self) -> dict:
+        return {"jet": self.n_jet, "sp": self.n_sp}
 
 
 def _check_device(d) -> torch.device:
@@ -43,13 +65,13 @@ def _check_device(d) -> torch.device:
 
 
 def make_mesh(n_jet: int | None = None, n_sp: int = 1,
-              devices=None) -> list[torch.device]:
-    """The ordered devices of a jet split: `devices` (any number of
-    entries, repeats allowed), by default every CUDA device torch sees.
-    `n_jet`, when given, must equal their number. Raises for a device
-    torch cannot see and, with NotImplementedError, for n_sp > 1."""
-    if n_sp != 1:
-        raise NotImplementedError(SP_NOT_PORTED)
+              devices=None) -> Mesh:
+    """An n_jet x n_sp mesh over `devices` (row-major, repeats allowed), by
+    default every CUDA device torch sees; n_jet defaults to their number
+    over n_sp, and n_jet x n_sp must equal it. Raises for a device torch
+    cannot see."""
+    if n_sp < 1:
+        raise ValueError(f"make_mesh: n_sp {n_sp} < 1")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: torch finds no GPU; pass devices "
@@ -58,16 +80,22 @@ def make_mesh(n_jet: int | None = None, n_sp: int = 1,
     mesh = [_check_device(d) for d in devices]
     if not mesh:
         raise ValueError("make_mesh: no devices")
-    if n_jet is not None and n_jet != len(mesh):
-        raise ValueError(f"make_mesh: n_jet {n_jet} != {len(mesh)} devices")
-    return mesh
+    n_jet = len(mesh) // n_sp if n_jet is None else n_jet
+    if n_jet * n_sp != len(mesh):
+        raise ValueError(f"make_mesh: n_jet {n_jet} x n_sp {n_sp} != "
+                         f"{len(mesh)} devices")
+    return Mesh(mesh, n_sp)
 
 
-def shard_jet_batch(mesh, *tensors) -> list[tuple]:
-    """Split each tensor's batch axis (dim 0) into len(mesh) contiguous
-    chunks, chunk i moved to mesh[i]. Returns one tuple of chunks per
-    device. The batch must divide evenly."""
-    n = len(mesh)
+def shard_jet_batch(mesh, *tensors, spatial_axis: int | None = None
+                    ) -> list[tuple]:
+    """Split each tensor's batch axis (dim 0) into one contiguous chunk per
+    mesh row; with `spatial_axis` and an sp extent > 1 also split that axis
+    into the row's n_sp contiguous strips (`strips.strip_bounds`), else each
+    row's chunk is repeated over its sp entries. Returns one tuple per mesh
+    entry (row-major), moved to its device. The batch must divide evenly."""
+    n_sp = getattr(mesh, "n_sp", 1)
+    n = len(mesh) // n_sp
     b = tensors[0].shape[0]
     if any(t.shape[0] != b for t in tensors):
         raise ValueError("shard_jet_batch: batch sizes differ: "
@@ -76,8 +104,19 @@ def shard_jet_batch(mesh, *tensors) -> list[tuple]:
         raise ValueError(f"shard_jet_batch: batch {b} does not split evenly "
                          f"over {n} devices")
     k = b // n
-    return [tuple(t[i * k:(i + 1) * k].to(d) for t in tensors)
-            for i, d in enumerate(mesh)]
+    out = []
+    for i, d in enumerate(mesh):
+        j, s = divmod(i, n_sp)
+        parts = []
+        for t in tensors:
+            t = t[j * k:(j + 1) * k]
+            if spatial_axis is not None and n_sp > 1:
+                bounds = strip_bounds(t.shape[spatial_axis], n_sp)
+                t = t.narrow(spatial_axis, bounds[s],
+                             bounds[s + 1] - bounds[s])
+            parts.append(t.to(d))
+        out.append(tuple(parts))
+    return out
 
 
 def run_sharded(mesh, fn, *tensors):
@@ -115,16 +154,25 @@ def run_sharded(mesh, fn, *tensors):
     return gathered
 
 
-def sharded_jet_step(mesh, p):
+def sharded_jet_step(mesh, p, spatial_shard: bool = False):
     """A callable (wx, wy, seq, channel_w, norm_avg, norm_std) ->
-    (wx, wy, occ): `compute_one_level` over the batch, split over `mesh`
-    (`run_sharded`)."""
+    (wx, wy, occ): one `compute_one_level` pass over the batch with the
+    jets split over the mesh's rows and, with `spatial_shard` on a mesh of
+    sp extent > 1, each jet's image rows over the row's devices
+    (`strips.run_strips`); without it the jets split over the mesh's first
+    column (`run_sharded`). `mesh`: a `make_mesh` mesh, or a list of
+    devices (one row each). Inputs are full [B, ...] tensors; the result
+    lands on mesh[0]."""
     from ..variational.multiframe import compute_one_level
 
-    mesh = make_mesh(devices=mesh)
+    if not isinstance(mesh, Mesh):
+        mesh = make_mesh(devices=mesh)
 
     def step(wx, wy, seq, channel_w, norm_avg, norm_std):
+        if spatial_shard and mesh.n_sp > 1:
+            return run_strips(mesh, p, wx, wy, seq, channel_w, norm_avg,
+                              norm_std)[0]
         return run_sharded(
-            mesh, lambda *a: compute_one_level(*a, p=p), wx, wy, seq,
-            channel_w, norm_avg, norm_std)
+            mesh[::mesh.n_sp], lambda *a: compute_one_level(*a, p=p), wx, wy,
+            seq, channel_w, norm_avg, norm_std)
     return step

@@ -6,6 +6,7 @@ each final scored as `dt_flow_err_px` scores the first.
         --threads 2 --out ROOT
     python3 -m slowflow_tpu_torch.stage3_seeds ROOT [--finals 8]
         [--seeds 3,1,2,4,5] [--threads 2] [--out PATH] [--device cuda|cpu]
+        [--save-first-final DEST] [--cmd "python -m PACKAGE.cli.dense_tracking"]
 
 Propagation draws its proposals from the cfg's `seed` (3 in the pipeline),
 so one run's error is one sample. Prints the card, then per seed the wall
@@ -13,11 +14,21 @@ and the error of every final (final k starts at frame 2 + 10 k; the
 background outside the disc's corridor over its frames), and writes the
 record as JSON to PATH when given. The tree's stage-3 outputs go to
 `ROOT/dt_seed<seed>`.
+
+`--save-first-final DEST` first copies what the first final reads (its
+frames, the stage-2 flows and occlusions of its jets, the stage-2 output's
+other files) into a tree of the same layout at DEST, a few MB that another
+machine can rerun stage 3 on. `--cmd` runs another stage-3 CLI with the same
+cfg instead of the port's, as a child process (for example the reference
+package's, on the saved tree, with `--device cpu`).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
+import shlex
+import shutil
 import subprocess
 import sys
 import time
@@ -42,6 +53,27 @@ def final_errors(out: Path, finals: int) -> list[float]:
     return errs
 
 
+def save_first_final(root: Path, dest: Path) -> list[str]:
+    """Copy the files the first final of `root` reads into `dest` (same
+    layout). Returns the copied paths, relative to `root`."""
+    lo = bp.START
+    hi = bp.START + bp.DT_JETS * bp.STEPS
+
+    def wanted(path: Path) -> bool:
+        nums = re.findall(r"\d+", path.stem)
+        return not nums or lo <= int(nums[-1]) <= hi
+
+    copied = []
+    for sub in ("seq", "sf_out"):
+        for src in sorted((root / sub).rglob("*")):
+            rel = src.relative_to(root)
+            if src.is_file() and wanted(src):
+                (dest / rel).parent.mkdir(parents=True, exist_ok=True)
+                shutil.copy2(src, dest / rel)
+                copied.append(str(rel))
+    return copied
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root", help="a bench_pipeline run's tree (--out)")
@@ -50,10 +82,16 @@ def main(argv=None) -> int:
     ap.add_argument("--threads", type=int, default=2)
     ap.add_argument("--out", help="write the record as JSON here")
     ap.add_argument("--device", default=None)
+    ap.add_argument("--save-first-final", default=None, metavar="DEST")
+    ap.add_argument("--cmd", default=None,
+                    help="another stage-3 CLI to run on the cfg")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     root = Path(args.root)
-    rec = {"root": str(root), "finals": args.finals, "seeds": {}}
+    rec = {"root": str(root), "finals": args.finals, "seeds": {},
+           "cmd": args.cmd}
+    if args.save_first_final:
+        rec["saved"] = save_first_final(root, Path(args.save_first_final))
     if device.type == "cuda":
         rec["card"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -67,9 +105,13 @@ def main(argv=None) -> int:
         cfg = cfg.replace("seed\t3\n", f"seed\t{seed}\n")
         (root / f"dt_seed{seed}.cfg").write_text(cfg)
         t0 = time.perf_counter()
-        rc = dense_tracking.main([str(root / f"dt_seed{seed}.cfg"),
-                                  "-threads", str(args.threads), "-device",
-                                  str(device)])
+        cfg_path = str(root / f"dt_seed{seed}.cfg")
+        if args.cmd:
+            rc = subprocess.run([*shlex.split(args.cmd), cfg_path,
+                                 "-threads", str(args.threads)]).returncode
+        else:
+            rc = dense_tracking.main([cfg_path, "-threads", str(args.threads),
+                                      "-device", str(device)])
         if rc != 0:
             raise RuntimeError(f"stage 3 with seed {seed}: exit code {rc}")
         wall = time.perf_counter() - t0

@@ -18,17 +18,21 @@ import torch
 
 from .. import kernels
 from ..core.solver import sor_coupled_rb
+from ..core.rows import own_rows
 from .terms import compute_smoothness_mt, sub_laplacian
 
 
 def solve_step(uu, vv, dpsis, a11, a12, a22, b1, b2, du=None, dv=None, *,
                alpha: float, reg_pen, method: int, iterations: int,
-               omega: float, with_change: bool = False):
+               omega: float, with_change: bool = False, rows=None):
     """All planes [B, H, W] float32. du / dv None means the sweeps start
     from zero. Returns (ndu, ndv) or, with `with_change`, (ndu, ndv, sums)
-    with sums [B, 2]."""
+    with sums [B, 2]. `rows` (core/rows.py `StripRows`): the planes
+    are strip windows; the colours follow the image's rows and the sums
+    cover each window's own rows."""
     kw = dict(alpha=alpha, reg_pen=reg_pen, method=method,
-              iterations=iterations, omega=omega, with_change=with_change)
+              iterations=iterations, omega=omega, with_change=with_change,
+              rows=rows)
     if uu.device.type == "cpu":
         return solve_step_ref(uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv,
                               **kw)
@@ -40,7 +44,7 @@ def solve_step(uu, vv, dpsis, a11, a12, a22, b1, b2, du=None, dv=None, *,
 
 def solve_step_ref(uu, vv, dpsis, a11, a12, a22, b1, b2, du=None, dv=None,
                    *, alpha: float, reg_pen, method: int, iterations: int,
-                   omega: float, with_change: bool = False):
+                   omega: float, with_change: bool = False, rows=None):
     """Plain PyTorch twin of the K1 kernel (any device)."""
     du0 = torch.zeros_like(uu) if du is None else du
     dv0 = torch.zeros_like(vv) if dv is None else dv
@@ -48,11 +52,15 @@ def solve_step_ref(uu, vv, dpsis, a11, a12, a22, b1, b2, du=None, dv=None,
     b1 = sub_laplacian(b1, uu, wh, wv)
     b2 = sub_laplacian(b2, vv, wh, wv)
     ndu, ndv = sor_coupled_rb(du0, dv0, a11, a12, a22, b1, b2, wh, wv,
-                              iterations=iterations, omega=omega)
+                              iterations=iterations, omega=omega, rows=rows)
     if not with_change:
         return ndu, ndv
-    sums = torch.stack([(ndu - du0).abs().sum((-2, -1)),
-                        (ndv - dv0).abs().sum((-2, -1))], -1)
+    cu, cv = (ndu - du0).abs(), (ndv - dv0).abs()
+    if rows is not None:
+        own = own_rows(rows, uu.shape[-2])
+        zero = torch.zeros((), device=uu.device)
+        cu, cv = torch.where(own, cu, zero), torch.where(own, cv, zero)
+    sums = torch.stack([cu.sum((-2, -1)), cv.sum((-2, -1))], -1)
     return ndu, ndv, sums
 
 
@@ -83,7 +91,8 @@ def _solve_plan(b: int, h: int, w: int, k5: bool, device_index: int):
 
 
 def _solve_step_cuda(uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv, *,
-                     alpha, reg_pen, method, iterations, omega, with_change):
+                     alpha, reg_pen, method, iterations, omega, with_change,
+                     rows):
     dev = uu.device
     if uu.dim() != 3:
         raise ValueError(f"uu: expected [B, H, W], got {tuple(uu.shape)}")
@@ -98,6 +107,7 @@ def _solve_step_cuda(uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv, *,
         named.update(du=du, dv=dv)
     for name, t in named.items():
         kernels.require_f32_cuda(name, t, (b, h, w), dev)
+    kernels.require_rows(rows, b, h, dev)
     ndu = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     ndv = torch.empty_like(ndu)
     n_scratch = solve_plan(b, h, w).scratch_floats
@@ -109,7 +119,8 @@ def _solve_step_cuda(uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv, *,
     err = lib.sf_solve_step(
         *(kernels.ptr(t) for t in (uu, vv, dpsis, a11, a12, a22, b1, b2, du,
                                    dv, ndu, ndv, scratch)), n_scratch,
-        kernels.ptr(sums), b, h, w, int(method), int(fct), eps_sq, trunc,
+        kernels.ptr(sums), kernels.rows_ptr(rows), b, h, w, int(method),
+        int(fct), eps_sq, trunc,
         trunc_val,
         float(alpha), int(iterations), float(omega), kernels.stream_ptr(dev))
     kernels.check(err, "solve_step")

@@ -17,7 +17,7 @@ from .terms import gate_masks, succ_mask, warp_window_frames
 
 
 def warp_assemble(seq, wx, wy, occ, du, dv, cw, p, *, mode: str = "assembly",
-                  zero_duv: bool = False):
+                  zero_duv: bool = False, rows=None):
     """Warp the window by the flow and assemble the data terms.
 
     seq [B, 2ref+1, 3, H, W]; wx, wy, occ, du, dv [B, H, W]; cw [B, 3, H, W].
@@ -28,22 +28,25 @@ def warp_assemble(seq, wx, wy, occ, du, dv, cw, p, *, mode: str = "assembly",
       assembly     -> a11, a12, a22, b1, b2
       occ          -> e0, e1
       occ_assembly -> e0, e1, 5 past-offset planes, 5 future-offset planes
+    `rows` (core/rows.py `StripRows`): the planes are strip windows;
+    the warp clamps and masks against the image's rows.
     """
     if seq.device.type == "cpu":
         return warp_assemble_ref(seq, wx, wy, occ, du, dv, cw, p, mode=mode,
-                                 zero_duv=zero_duv)
+                                 zero_duv=zero_duv, rows=rows)
     if seq.device.type != "cuda":
         raise ValueError(f"warp_assemble: unsupported device {seq.device}")
     return _warp_assemble_cuda(seq, wx, wy, occ, du, dv, cw, p, mode,
-                               zero_duv)
+                               zero_duv, rows)
 
 
 def warp_assemble_ref(seq, wx, wy, occ, du, dv, cw, p, *,
-                      mode: str = "assembly", zero_duv: bool = False):
+                      mode: str = "assembly", zero_duv: bool = False,
+                      rows=None):
     """Plain PyTorch twin of the K2 kernel (any device): exact warp, then
     K3's twin on the warped window (gated mask in `assembly` mode)."""
     check_mode(p, mode, zero_duv)
-    warped, masks = warp_window_frames(seq, wx, wy, p.ref)
+    warped, masks = warp_window_frames(seq, wx, wy, p.ref, rows)
     mask = succ_mask(masks, p.ref)
     if mode == "assembly":
         mask = gate_masks(mask, occ, p)
@@ -51,7 +54,8 @@ def warp_assemble_ref(seq, wx, wy, occ, du, dv, cw, p, *,
                                  zero_duv=zero_duv)
 
 
-def _warp_assemble_cuda(seq, wx, wy, occ, du, dv, cw, p, mode, zero_duv):
+def _warp_assemble_cuda(seq, wx, wy, occ, du, dv, cw, p, mode, zero_duv,
+                        rows):
     check_mode(p, mode, zero_duv)
     dev = seq.device
     b, f, c, h, w = seq.shape
@@ -63,6 +67,7 @@ def _warp_assemble_cuda(seq, wx, wy, occ, du, dv, cw, p, mode, zero_duv):
     for name, t in (("wx", wx), ("wy", wy)):
         kernels.require_f32_cuda(name, t, plane, dev)
     kernels.require_f32_cuda("cw", cw, (b, 3, h, w), dev)
+    kernels.require_rows(rows, b, h, dev)
     if mode == "assembly":
         kernels.require_f32_cuda("occ", occ, plane, dev)
     if not zero_duv:
@@ -77,7 +82,8 @@ def _warp_assemble_cuda(seq, wx, wy, occ, du, dv, cw, p, mode, zero_duv):
         kernels.ptr(occ if mode == "assembly" else None),
         kernels.ptr(None if zero_duv else du),
         kernels.ptr(None if zero_duv else dv), kernels.ptr(cw),
-        kernels.ptr(out), b, h, w, mode_id, int(zero_duv),
+        kernels.ptr(out), kernels.rows_ptr(rows),
+        h if rows is None else rows.img_h, b, h, w, mode_id, int(zero_duv),
         ctypes.c_void_p(params.ctypes.data), params.size,
         kernels.stream_ptr(dev))
     kernels.check(err, "warp_assemble")

@@ -26,6 +26,12 @@ two halves into one system; a peeled outer iteration solves it from zero;
 every further outer iteration assembles and solves. Every other route
 takes the plain order: the `occ` costs (from the second alternation on),
 then one assembly and one solve per outer (and inner) iteration.
+
+With a strip plan (`strips`, parallel/strips.py) the batch holds strip
+windows of taller images: the kernels take the windows' places, the ghost
+rows are refreshed after each solve and each relabel, per-jet sums cover
+own rows and add over a jet's strips, and the windows widen before a warp
+when the flow outgrows them. Without one every hook is skipped.
 """
 from __future__ import annotations
 
@@ -53,18 +59,18 @@ def _freeze(live, new, old):
     return torch.where(live.view(-1, *([1] * (new.dim() - 1))), new, old)
 
 
-def _window_warp_pallas(seq, wx, wy, ref: int):
+def _window_warp_pallas(seq, wx, wy, ref: int, rows=None):
     """K6's entry on a window: every frame k warped by (k - ref), the
     reference frame included, as the JAX package's pallas_warp route does."""
     return warp_stack_pallas(seq, wx, wy,
-                             [k - ref for k in range(seq.shape[1])])
+                             [k - ref for k in range(seq.shape[1])], rows)
 
 
-def _level_state(route, seq, channel_w, p: MultiFrameParams):
+def _level_state(route, seq, channel_w, p: MultiFrameParams, rows=None):
     """The route's (derive, occ_costs, data_terms):
     derive(wx, wy) -> state; occ_costs(state) -> (e0, e1);
     data_terms(state, du, dv, occ) -> (a11, a12, a22, b1, b2), du / dv
-    None meaning zero."""
+    None meaning zero. `rows`: the strip windows' places, or None."""
     ref = p.ref
     zero_duv = p.niter_inner == 1
 
@@ -74,15 +80,15 @@ def _level_state(route, seq, channel_w, p: MultiFrameParams):
 
         def occ_costs(state):
             return warp_assemble(seq, *state, None, None, None, channel_w, p,
-                                 mode="occ", zero_duv=True)
+                                 mode="occ", zero_duv=True, rows=rows)
 
         def data_terms(state, du, dv, occ):
             return warp_assemble(seq, *state, occ, du, dv, channel_w, p,
                                  mode="assembly",
-                                 zero_duv=zero_duv or du is None)
+                                 zero_duv=zero_duv or du is None, rows=rows)
     elif route.assembly == "stack":
         def derive(wxc, wyc):
-            warped, masks = warp_stack(seq, wxc, wyc, ref)
+            warped, masks = warp_stack(seq, wxc, wyc, ref, rows)
             return warped, succ_mask(masks, ref)
 
         def occ_costs(state):
@@ -98,7 +104,9 @@ def _level_state(route, seq, channel_w, p: MultiFrameParams):
         warp = _window_warp_pallas if p.pallas_warp else warp_stack
 
         def derive(wxc, wyc):
-            return get_derivatives_mt(seq, wxc, wyc, ref, warp=warp)
+            return get_derivatives_mt(
+                seq, wxc, wyc, ref,
+                warp=lambda *a: warp(*a, rows=rows))
 
         def occ_costs(state):
             succ, to_ref, mask = state
@@ -114,14 +122,16 @@ def _level_state(route, seq, channel_w, p: MultiFrameParams):
 
 
 def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
-                      p: MultiFrameParams):
+                      p: MultiFrameParams, strips=None):
     """Alternating discrete / continuous minimization at one pyramid level.
 
     wx, wy [B, H, W]; seq [B, 2ref+1, 3, H, W]; channel_w [B, 3, H, W];
-    norm_avg, norm_std [B, 3]. Returns (wx, wy, occlusions in {-1, 0, +1})."""
+    norm_avg, norm_std [B, 3]. Returns (wx, wy, occlusions in {-1, 0, +1}).
+    `strips` (parallel/strips.py `Strips`): the batch is this device's strip
+    windows (module docstring); the result is those windows."""
     ref = p.ref
     b, _, _, h, w = seq.shape
-    hw = h * w
+    hw = h * w if strips is None else strips.img_h * w
     dev = seq.device
     route = p.route()
     _, _, reg_pen = p.penalties()
@@ -133,28 +143,65 @@ def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
     dpsis = compute_dpsis_weight_mt(seq[:, ref], norm_avg, norm_std, 5.0,
                                     p.hbit)
     inf = torch.full((b,), float("inf"), device=dev)
-    derive, occ_costs, data_terms = _level_state(route, seq, channel_w, p)
+    rows = None if strips is None else strips.rows
+    derive, occ_costs, data_terms = _level_state(route, seq, channel_w, p,
+                                                 rows)
+
+    def any_live(live):
+        return bool(live.any()) if strips is None else strips.any(live)
+
+    def entry_sum(x):
+        """Sums of [B, H, W] planes per batch entry (a strip window's own
+        rows)."""
+        return x.sum((1, 2)) if strips is None else strips.own_sum(x)
+
+    def image_sum(x):
+        """Sums of [B, H, W] planes per jet, over its whole image."""
+        return entry_sum(x) if strips is None \
+            else strips.jet_sum(entry_sum(x))
+
+    def cover(wx, wy, occ):
+        """With strips, widen every window that the warp by wy outgrows."""
+        nonlocal seq, channel_w, dpsis, rows, derive, occ_costs, data_terms
+        if strips is None:
+            return wx, wy, occ
+        wider = strips.cover(wy, seq, channel_w, wx, wy, occ)
+        if wider is None:
+            return wx, wy, occ
+        seq, channel_w, wx, wy, occ = wider
+        rows = strips.rows
+        dpsis = compute_dpsis_weight_mt(seq[:, ref], norm_avg, norm_std, 5.0,
+                                        p.hbit)
+        derive, occ_costs, data_terms = _level_state(route, seq, channel_w,
+                                                     p, rows)
+        return wx, wy, occ
 
     def solve(uu, vv, du, dv, system):
         """(ndu, ndv, sums [B, 2] of |ndu - du|, |ndv - dv|); du / dv None
-        means the sweeps start from zero."""
+        means the sweeps start from zero. With strips the ghost rows of
+        ndu / ndv are refreshed and the sums are the jets'."""
         if route.solve == "fused":
-            return solve_step(uu, vv, dpsis, *system, du, dv, alpha=p.alpha,
-                              reg_pen=reg_pen, method=p.smoothing,
-                              iterations=p.niter_solver, omega=p.sor_omega,
-                              with_change=True)
-        a11, a12, a22, b1, b2 = system
-        wh, wv = compute_smoothness_mt(uu, vv, dpsis, p.alpha, reg_pen,
-                                       p.smoothing)
-        b1 = sub_laplacian(b1, uu, wh, wv)
-        b2 = sub_laplacian(b2, vv, wh, wv)
-        du0 = torch.zeros_like(uu) if du is None else du
-        dv0 = torch.zeros_like(vv) if dv is None else dv
-        ndu, ndv = sor_coupled_rb_pallas(du0, dv0, a11, a12, a22, b1, b2, wh,
-                                         wv, iterations=p.niter_solver,
-                                         omega=p.sor_omega)
-        sums = torch.stack([(ndu - du0).abs().sum((1, 2)),
-                            (ndv - dv0).abs().sum((1, 2))], -1)
+            ndu, ndv, sums = solve_step(
+                uu, vv, dpsis, *system, du, dv, alpha=p.alpha,
+                reg_pen=reg_pen, method=p.smoothing,
+                iterations=p.niter_solver, omega=p.sor_omega,
+                with_change=True, rows=rows)
+        else:
+            a11, a12, a22, b1, b2 = system
+            wh, wv = compute_smoothness_mt(uu, vv, dpsis, p.alpha, reg_pen,
+                                           p.smoothing)
+            b1 = sub_laplacian(b1, uu, wh, wv)
+            b2 = sub_laplacian(b2, vv, wh, wv)
+            du0 = torch.zeros_like(uu) if du is None else du
+            dv0 = torch.zeros_like(vv) if dv is None else dv
+            ndu, ndv = sor_coupled_rb_pallas(
+                du0, dv0, a11, a12, a22, b1, b2, wh, wv,
+                iterations=p.niter_solver, omega=p.sor_omega, rows=rows)
+            sums = torch.stack([entry_sum((ndu - du0).abs()),
+                                entry_sum((ndv - dv0).abs())], -1)
+        if strips is not None:
+            strips.exchange(ndu, ndv)
+            sums = strips.jet_sum(sums)
         return ndu, ndv, sums
 
     def rate(sums):
@@ -166,7 +213,7 @@ def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
         du = dv = None
         uu, vv, change = wx0, wy0, inf
         for it in range(p.niter_inner):
-            if it > 0 and not bool(live.any()):
+            if it > 0 and not any_live(live):
                 break
             system = data_terms(state, du, dv, occ)
             ndu, ndv, sums = solve(uu, vv, du, dv, system)
@@ -181,7 +228,8 @@ def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
     def outer(wx, wy, occ, live, state, first_system):
         """Re-warp / re-linearize loop from the alternation-top `state`.
         first_system: the already assembled iteration-0 system (fused
-        occlusion route), solved from zero."""
+        occlusion route), solved from zero. Returns (wx, wy, occ, change):
+        with strips a widening replaces occ's windows too."""
         change = inf
         start = 0
         if first_system is not None:
@@ -192,35 +240,42 @@ def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
             live = live & (change >= p.thres_outer)
             start = 1
         for it in range(start, p.niter_outer):
-            if not bool(live.any()):
+            if not any_live(live):
                 break
             if it > 0:
+                wx, wy, occ = cover(wx, wy, occ)
                 state = derive(wx, wy)
             uu, vv, ch = inner(wx, wy, state, occ, live)
             if p.niter_inner != 1:
-                ch = torch.maximum((uu - wx).abs().sum((1, 2)),
-                                   (vv - wy).abs().sum((1, 2))) / hw
+                ch = torch.maximum(image_sum((uu - wx).abs()),
+                                   image_sum((vv - wy).abs())) / hw
             wx = _freeze(live, uu, wx)
             wy = _freeze(live, vv, wy)
             change = torch.where(live, ch, change)
             live = live & (change >= p.thres_outer)
-        return wx, wy, change
+        return wx, wy, occ, change
 
     def relabel(e0, e1):
-        lab = solve_binary_potts(e0, e1, p.occlusion_alpha, p.niter_graphc)
-        return 2.0 * lab - 1.0
+        lab = solve_binary_potts(e0, e1, p.occlusion_alpha, p.niter_graphc,
+                                 strips)
+        occ = 2.0 * lab - 1.0
+        if strips is not None:
+            strips.exchange(occ)
+        return occ
 
     alive = torch.ones(b, dtype=torch.bool, device=dev)
     for it in range(p.niter_alter):
-        if it > 0 and not bool(alive.any()):
+        if it > 0 and not any_live(alive):
             break
+        wx, wy, occ = cover(wx, wy, occ)
         state = derive(wx, wy)
         first_system = None
         new_occ = occ
         stable = torch.ones(b, dtype=torch.bool, device=dev)
         if fuse_occ:
             outs = warp_assemble(seq, wx, wy, None, None, None, channel_w, p,
-                                 mode="occ_assembly", zero_duv=True)
+                                 mode="occ_assembly", zero_duv=True,
+                                 rows=rows)
             if it > 0:
                 new_occ = relabel(outs[0], outs[1])
             backward, forward = direction_weights(new_occ, dn)
@@ -229,10 +284,10 @@ def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
         elif occ_step and it > 0:
             new_occ = relabel(*occ_costs(state))
         if occ_step:
-            stable = (new_occ == occ).flatten(1).all(1) if it > 0 \
+            stable = image_sum((new_occ != occ).float()) == 0 if it > 0 \
                 else torch.zeros_like(stable)
         occ = _freeze(alive, new_occ, occ)
-        wx, wy, change = outer(wx, wy, occ, alive, state, first_system)
+        wx, wy, occ, change = outer(wx, wy, occ, alive, state, first_system)
         # fixed-point exit: labels repeat and the flow moved below thres
         alive = alive & ~(stable & (change < p.thres_outer))
     return wx, wy, occ
@@ -305,6 +360,10 @@ def variational_mt_sharded(wx, wy, seq, p: MultiFrameParams, mesh,
     The batch must divide evenly over the mesh. Inputs as for
     `variational_mt_batched`; returns (wx, wy, occlusions) [B, H, W] on the
     mesh's first device."""
+    if getattr(mesh, "n_sp", 1) != 1:
+        raise ValueError("variational_mt_sharded splits jets only (a mesh of "
+                         "sp extent 1); sharded_jet_step runs one level over "
+                         "sp")
     mesh = make_mesh(devices=mesh)
     device = mesh[0]
     seq = as_f32(seq, device)

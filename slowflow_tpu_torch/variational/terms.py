@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from ..core.conv import DERIV_3PT, DERIV_5PT, conv_horiz, conv_vert, \
     shift_clamped
 from ..core.warp import warp_bilinear
+from ..core.rows import red_cells
 
 DATANORM = 0.1 * 0.1          # data-term normalization epsilon
 DT_SCALE_GRAPHC = 0.01        # occlusion data-cost scale
@@ -116,9 +117,10 @@ def sub_laplacian(dst, src, wh, wv):
 
 
 # ------------------------------------------------------ derivative stacks
-def warp_window_frames(seq, wx, wy, ref: int):
+def warp_window_frames(seq, wx, wy, ref: int, rows=None):
     """Warp every window frame k by factor (k - ref); frame ref is the
-    identity with an all-ones mask. seq [..., F, 3, H, W], flow [..., H, W].
+    identity with an all-ones mask. seq [..., F, 3, H, W], flow [..., H, W];
+    `rows`: strip windows' places in their image (core/warp.py).
     Returns (warped [..., F, 3, H, W], masks [..., F, H, W])."""
     outs, masks = [], []
     for k in range(seq.shape[-4]):
@@ -126,7 +128,8 @@ def warp_window_frames(seq, wx, wy, ref: int):
             outs.append(seq[..., k, :, :, :])
             masks.append(torch.ones_like(wx))
             continue
-        o, m = warp_bilinear(seq[..., k, :, :, :], wx, wy, float(k - ref))
+        o, m = warp_bilinear(seq[..., k, :, :, :], wx, wy, float(k - ref),
+                             rows)
         outs.append(o)
         masks.append(m)
     return torch.stack(outs, -4), torch.stack(masks, -3)
@@ -361,18 +364,25 @@ def occlusion_data_costs(mask, succ, to_ref, p):
             DT_SCALE_GRAPHC * e1 / n1 + p.occlusion_penalty)
 
 
-def solve_binary_potts(e0, e1, alpha: float, iterations: int):
+def solve_binary_potts(e0, e1, alpha: float, iterations: int, strips=None):
     """Binary Potts MRF on the 4-connected grid by red-black ICM.
 
     Three starts (the data-cost argmin and both constant labelings) sweep
     together until none changes or `iterations` sweeps ran; the start with
     the lowest energy wins. A settled start is a fixed point, so running on
     until the last one settles changes nothing for it. The per-sweep changed
-    flag is read on the host. Returns labels {0, 1} as float32 [..., H, W]."""
+    flag is read on the host. Returns labels {0, 1} as float32 [..., H, W].
+
+    `strips` (parallel/strips.py `Strips`): e0 / e1 [E, H, W] are strip
+    windows. The colours follow the image's rows, `changed` looks at own
+    rows on every strip, and each start's energy sums unary terms over own
+    rows and pairs whose upper (or left) pixel is own over a jet's strips,
+    so every strip of a jet picks the same start."""
     h, w = e0.shape[-2:]
     dev = e0.device
-    red = (torch.arange(h, device=dev)[:, None]
-           + torch.arange(w, device=dev)[None, :]) % 2 == 0
+    red = red_cells(None if strips is None else strips.rows, h, w, dev)
+    if strips is not None:
+        red = red.unsqueeze(-3)
     ones = F.pad(torch.ones((h, w), dtype=e0.dtype, device=dev), (1, 1, 1, 1))
     deg = ones[:-2, 1:-1] + ones[2:, 1:-1] + ones[1:-1, :-2] + ones[1:-1, 2:]
     e0s = e0.unsqueeze(-3)
@@ -392,14 +402,24 @@ def solve_binary_potts(e0, e1, alpha: float, iterations: int):
     cands = torch.stack([lab, torch.zeros_like(lab), torch.ones_like(lab)], -3)
     for _ in range(iterations):
         new = half(half(cands, red), ~red)
-        changed = bool((new != cands).any())
+        if strips is None:
+            changed = bool((new != cands).any())
+        else:
+            changed = strips.any((new != cands) & strips.own.unsqueeze(-3))
         cands = new
         if not changed:
             break
 
-    both = torch.where(cands > 0.5, e1s, e0s).sum((-2, -1))
-    pw = ((cands[..., :, 1:] - cands[..., :, :-1]).abs().sum((-2, -1))
-          + (cands[..., 1:, :] - cands[..., :-1, :]).abs().sum((-2, -1)))
+    unary = torch.where(cands > 0.5, e1s, e0s)
+    horiz = (cands[..., :, 1:] - cands[..., :, :-1]).abs()
+    vert = (cands[..., 1:, :] - cands[..., :-1, :]).abs()
+    if strips is None:
+        both = unary.sum((-2, -1))
+        pw = horiz.sum((-2, -1)) + vert.sum((-2, -1))
+    else:
+        both = strips.jet_sum(strips.own_sum(unary))
+        pw = strips.jet_sum(strips.own_sum(F.pad(horiz, (0, 1)))
+                            + strips.own_sum(F.pad(vert, (0, 0, 0, 1))))
     best = torch.argmin(both + alpha * pw, dim=-1)          # [...]
     idx = best[..., None, None, None].expand(*best.shape, 1, h, w)
     return cands.gather(-3, idx).squeeze(-3)

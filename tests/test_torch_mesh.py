@@ -8,7 +8,8 @@ to `variational_mt_batched` / `compute_one_level` over the whole batch (as
 tests/test_mesh.py demands of the JAX package), and the stage-2 CLI with
 `devices=[cpu, cpu]` writes the same `.flo` bytes as with one device.
 Meshes that cannot be honoured raise: a batch that does not split evenly, a
-device torch cannot see, n_sp > 1 (the sp row-sharding is not ported).
+device torch cannot see, an sp mesh given to the jet-only pyramid (an sp
+mesh itself is built: tests/test_torch_sp.py runs it).
 The `cuda` case runs two shards on one card; there the kernels' band plans
 depend on the local batch, so it is held to chip_smoke's slice tolerances.
 """
@@ -95,8 +96,11 @@ def test_meshes_that_cannot_be_honoured_raise():
         variational_mt_sharded(wx, wy, seq, P, CPU2)
     with pytest.raises(ValueError, match="does not split evenly"):
         pmesh.shard_jet_batch(CPU2, wx)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pmesh.make_mesh(n_jet=1, n_sp=2, devices=CPU2)
+    sp = pmesh.make_mesh(n_jet=1, n_sp=2, devices=CPU2)
+    assert sp.shape == {"jet": 1, "sp": 2} and list(sp) == [
+        torch.device("cpu")] * 2
+    with pytest.raises(ValueError, match="sp extent 1"):
+        variational_mt_sharded(wx[:2], wy[:2], seq[:2], P, sp)
     with pytest.raises(ValueError, match="n_jet"):
         pmesh.make_mesh(n_jet=3, devices=CPU2)
     with mock.patch("torch.cuda.is_available", return_value=False):
