@@ -1,9 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: its kernels, the stage-2 jet
 solve, the EPIC init, every CLI, stage 3, the three-stage pipeline, the
-jet split over two shards and the row split of one level over strips.
+jet split over two shards, the row split of one level over strips and the
+level's CUDA graphs against its eager dispatch.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --graphs     # phases 1 and 14 alone
+
+On CUDA the jet solve's levels replay cached CUDA graphs
+(slowflow_tpu_torch/variational/graphs.py), so phases 3, 5, 11 and 12 run
+through them; phase 3's twin run and phase 13's unsharded level take the
+eager level (compute_one_level's private `_eager`, `eager_levels`).
 
 Phases (any failure makes the script exit non-zero without the final line):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
@@ -101,6 +108,20 @@ Phases (any failure makes the script exit non-zero without the final line):
      of the route's kernel wrappers (K2 per mode), on the strip windows
      with their rows table and on the whole image, is held against its
      twin on the card (per-plane bound as in phase 2).
+ 14. graphs: the bench slice (bench config, batch 4, 270x480, 5 levels, 10
+     x 10 x 30) on the merged, stack + composed and unfused (pallas_warp)
+     routes, eager (`eager_levels`) against the cached graphs: wx, wy and
+     occ bitwise equal on the first (capturing) run and on replays; per
+     route the wall (median of 3), the host's launch calls (by API), the
+     device kernels, busy time and idle share under torch.profiler, the
+     first run's captures and seconds, peak memory above the inputs eager
+     and with the graphs and what the graphs keep, the launch counters
+     (equal eager, at capture and on replays), flow_recovery_err_px; on the
+     merged route the ICM's sweeps per eager call and what the graphs'
+     fixed sweeps add to the device time (the eager slice profiled again
+     with every ICM call running all its sweeps). The whole run cuts the
+     unfused route to phase 3's depth (2 levels, 2 x 3) for time;
+     `--graphs` runs it at the bench depth too.
 Prints a JSON line with one entry per kernel (K3's also with its other
 modes' times at the bench shape), then
 {"ok": true, "device": {...}} as the last line. A detailed record goes to
@@ -115,6 +136,7 @@ counts per cell are counted from the kernels' sources (an FMA is 2); see
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -188,6 +210,21 @@ def twins():
             "warp_stack": warp_shift.warp_stack_ref,
             "warp_stack_pallas": warp_pallas.warp_stack_pallas_ref,
             "sor_coupled_rb_pallas": solver.sor_coupled_rb}
+
+
+@contextlib.contextmanager
+def eager_levels(on: bool = True):
+    """While open (and `on`), every compute_one_level call runs the eager
+    level (its private `_eager`), the reference the CUDA graphs are held
+    to."""
+    from slowflow_tpu_torch.variational import multiframe
+
+    if not on:
+        yield
+        return
+    with mock.patch.object(multiframe, "compute_one_level", functools.partial(
+            multiframe.compute_one_level, _eager=True)):
+        yield
 
 
 def check(cond: bool, what: str) -> None:
@@ -654,17 +691,18 @@ def _slice(route, with_twins=True):
     seq = _bench_scene(b, h, w, dev)
     zero = torch.zeros((b, h, w), device=dev)
 
-    def solve():
-        out = multiframe.variational_mt_batched(zero, zero, seq, p,
-                                                device=dev)
+    def solve(eager):
+        with eager_levels(eager):
+            out = multiframe.variational_mt_batched(zero, zero, seq, p,
+                                                    device=dev)
         torch.cuda.synchronize()
         return out
 
-    def timed():
-        solve()                                   # warm-up
+    def timed(eager=False):
+        solve(eager)                              # warm-up (and captures)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        out = solve()
+        out = solve(eager)
         wall = time.perf_counter() - t0
         return out, wall, dict(kernels.LAUNCHES)
 
@@ -688,7 +726,7 @@ def _slice(route, with_twins=True):
     with contextlib.ExitStack() as stack:
         for name, fn in twins().items():
             stack.enter_context(mock.patch.object(multiframe, name, fn))
-        (twx, twy, tocc), t_wall, t_counts = timed()
+        (twx, twy, tocc), t_wall, t_counts = timed(eager=True)
     d = torch.hypot(kwx - twx, kwy - twy)
     med, mean = float(d.median()), float(d.mean())
     labels = float((kocc != tocc).float().mean())
@@ -941,7 +979,7 @@ def cli_stage2_epic():
         for dm in (1, 0):
             cfg = tmp / f"dm{dm}.cfg"
             cfg.write_text(_stage2_cfg(tmp / "seq", tmp / f"out{dm}", dm))
-            kept, inits = [], []
+            kept, inits, solve_s = [], [], []
 
             def matcher(*args, **kw):
                 out = slow_flow_matcher(*args, **kw)
@@ -950,7 +988,11 @@ def cli_stage2_epic():
 
             def solve(wx0, wy0, *args, **kw):
                 inits.append(float(wx0[0, 8:-8, 8:-8].median()))
-                return slow_flow_solve(wx0, wy0, *args, **kw)
+                t0 = time.perf_counter()
+                out = slow_flow_solve(wx0, wy0, *args, **kw)
+                torch.cuda.synchronize()
+                solve_s.append(time.perf_counter() - t0)
+                return out
 
             with phases.recording() as timed_phases, \
                     mock.patch.object(slow_flow, "grid_matches_batched",
@@ -973,7 +1015,8 @@ def cli_stage2_epic():
                      flow_recovery_err_px=err, batches=n_batch,
                      phases={k: v for k, v in totals.items()},
                      wall_per_batch_s=totals["sf.batch"][0] / max(n_batch, 1),
-                     solve_per_batch_s=totals["sf.solve"][0] / max(n_batch, 1))
+                     solve_per_batch_s=totals["sf.solve"][0] / max(n_batch, 1),
+                     solve_call_s=solve_s)
             if dm:
                 r.update(matches_kept=kept, init_recovery_err_px=abs(
                     inits[0] - BENCH_UV[0]) if inits else None)
@@ -987,7 +1030,8 @@ def cli_stage2_epic():
                   f" 0's forward .flo per frame {err:.5f} <= {RECOVERY_TOL}")
             print(f"{what}: {n_batch} batches of 4 jets, wall per batch "
                   f"{r['wall_per_batch_s']:.3f} s (solve "
-                  f"{r['solve_per_batch_s']:.3f} s); merged slice of phase 3"
+                  f"{r['solve_per_batch_s']:.3f} s; solve calls "
+                  f"{[round(t, 3) for t in solve_s]} s); merged slice of phase 3"
                   f" {RECORD.get('slices', {}).get('merged', {}).get('kernel_wall_s')} s")
             if dm:
                 print(f"  EPIC init recovery error {r['init_recovery_err_px']}"
@@ -1533,8 +1577,8 @@ def _sp_case(p, args, mesh, timed, hold=False):
     from slowflow_tpu_torch.variational.multiframe import compute_one_level
 
     b, h = args[2].shape[0], args[2].shape[3]
-    want, wall1, counts1, peak1 = timed(lambda: compute_one_level(*args,
-                                                                  p=p))
+    want, wall1, counts1, peak1 = timed(lambda: compute_one_level(
+        *args, p=p, _eager=True))
     step = sharded_jet_step(mesh, p, spatial_shard=True)
     got, wall, counts, peak = timed(lambda: step(*args))
     route = "pinned" if p.route().solve != "fused" else "merged"
@@ -1543,7 +1587,7 @@ def _sp_case(p, args, mesh, timed, hold=False):
     held = _calls_vs_twins(calls, "sp windows") if hold else []
     if hold:
         with _first_calls(SP_WRAPPERS[route]) as calls:
-            compute_one_level(*args, p=p)
+            compute_one_level(*args, p=p, _eager=True)
         held += _calls_vs_twins(calls, "whole image")
     geo = plan.geometry
     d = torch.hypot(got[0] - want[0], got[1] - want[1])
@@ -1729,6 +1773,184 @@ def sp_solve():
                 f"within the slice tolerances")
 
 
+# ---------------------------------------------------------------- phase 14
+GRAPH_ROUTES = {"merged": {},                                      # K2 + K1
+                "stack": dict(merge_warp=False, fused_solve=False),  # K4+K3+K5
+                "unfused": dict(pallas_warp=True, fused_solve=False)}  # K6+K5
+# the whole run cuts the unfused route to phase 3's depth for time (its
+# ~460,000 launches a slice take minutes in the profiler); --graphs runs it
+# at the bench depth too
+GRAPHS_FULL_DEPTH = False
+GRAPH_REPS = 3          # timed slices per dispatch (the median is kept)
+# host calls that launch device work: kernels (the hand kernels' cooperative
+# K1 / K5 included) and graph replays
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cudaLaunchCooperativeKernel", "cudaGraphLaunch")
+
+
+def _dispatch_profile(fn) -> dict:
+    """fn() once under torch.profiler: wall, the host's launch calls by API,
+    the device kernels and their busy time, the idle share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    calls: dict = {}
+    for ev in prof.events():
+        if ev.name in HOST_LAUNCH_CALLS:
+            calls[ev.name] = calls.get(ev.name, 0) + 1
+    evs = _kernel_events(prof)
+    busy = sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
+    return dict(wall_ms=wall * 1e3, host_launch_calls=sum(calls.values()),
+                host_launch_calls_by_api=calls, device_kernels=len(evs),
+                device_busy_ms=busy, idle_share=1 - busy / (wall * 1e3))
+
+
+def _graph_route(route):
+    """The bench slice on one route, eager and through the graphs."""
+    import torch
+
+    from slowflow_tpu_torch import kernels
+    from slowflow_tpu_torch.variational import graphs, multiframe, terms
+
+    t_route = time.perf_counter()
+    dev = torch.device("cuda")
+    p = bench_params(**(GRAPH_ROUTES[route] if GRAPHS_FULL_DEPTH
+                        or route != "unfused" else ROUTE_PARAMS[route]))
+    b, h, w = 4, 270, 480
+    seq = _bench_scene(b, h, w, dev)
+    zero = torch.zeros((b, h, w), device=dev)
+
+    def solve(eager):
+        with eager_levels(eager):
+            out = multiframe.variational_mt_batched(zero, zero, seq, p,
+                                                    device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    def timed(eager):
+        walls = []
+        for _ in range(GRAPH_REPS):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = solve(eager)
+            walls.append(time.perf_counter() - t0)
+        return out, walls, dict(kernels.LAUNCHES)
+
+    def err(out):
+        return abs(float(out[0][0, 8:-8, 8:-8].median()) - BENCH_UV[0])
+
+    graphs.clear()
+    solve(True)                                      # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    terms.ICM_SWEEPS.clear()
+    kernels.reset_launch_counts()
+    eager = solve(True)
+    e_counts = dict(kernels.LAUNCHES)
+    sweeps = dict(sorted(terms.ICM_SWEEPS.items()))
+    e_peak = torch.cuda.max_memory_allocated() - base
+    _, e_walls, _ = timed(True)
+    graphs.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = solve(False)                             # first runs + captures
+    first_wall = time.perf_counter() - t0
+    f_counts = dict(kernels.LAUNCHES)
+    g_peak = torch.cuda.max_memory_allocated() - base
+    kept = torch.cuda.memory_allocated() - base
+    stats = dict(graphs.STATS)
+    replay, g_walls, g_counts = timed(False)
+    check(graphs.STATS["captures"] == stats["captures"],
+          f"graphs {route}: the timed slices replayed without a capture")
+    e_prof = _dispatch_profile(lambda: solve(True))
+    g_prof = _dispatch_profile(lambda: solve(False))
+    bitwise = {name: all(torch.equal(g[i], eager[i]) for g in (first, replay))
+               for i, name in enumerate(("wx", "wy", "occ"))}
+    e_med, g_med = float(np.median(e_walls)), float(np.median(g_walls))
+    for prof, med in ((e_prof, e_med), (g_prof, g_med)):
+        prof["idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / (
+            med * 1e3)
+    rec = dict(
+        route=str(p.route()), layers=p.layers, niter_alter=p.niter_alter,
+        niter_outer=p.niter_outer, batch=b, height=h, width=w,
+        bitwise=bitwise, eager_wall_s=e_walls, graph_wall_s=g_walls,
+        eager_median_s=e_med, graph_median_s=g_med,
+        first_graph_run_s=first_wall, capture_s=stats["capture_s"],
+        captures=stats["captures"], replays_first_run=stats["replays"],
+        eager_launches=e_counts, first_run_launches=f_counts,
+        graph_launches=g_counts, eager_peak_gib=e_peak / 2 ** 30,
+        graph_peak_gib=g_peak / 2 ** 30,
+        extra_peak_gib=(g_peak - e_peak) / 2 ** 30,
+        graphs_kept_gib=kept / 2 ** 30, icm_sweeps_eager=sweeps,
+        eager_profile=e_prof, graph_profile=g_prof,
+        eager_flow_recovery_err_px=err(eager),
+        graph_flow_recovery_err_px=err(replay))
+    if route == "merged":
+        # what the graphs' fixed ICM sweeps cost: the eager slice once more
+        # with every ICM call running all its sweeps and reading nothing
+        fixed = functools.partial(terms.solve_binary_potts, early_exit=False)
+        with mock.patch.object(multiframe, "solve_binary_potts", fixed):
+            f_prof = _dispatch_profile(lambda: solve(True))
+        extra = f_prof["device_busy_ms"] - e_prof["device_busy_ms"]
+        rec["icm_fixed_sweeps"] = dict(
+            eager_profile=f_prof, extra_device_ms=extra,
+            extra_share_of_busy=extra / e_prof["device_busy_ms"])
+    rec["phase_s"] = time.perf_counter() - t_route
+    RECORD.setdefault("graphs", {})[route] = rec
+    graphs.clear()
+    print(f"graphs {route} ({p.layers} levels, {p.niter_alter} x "
+          f"{p.niter_outer}): eager {e_med:.3f} s "
+          f"{[round(t, 3) for t in e_walls]}, graphs "
+          f"{g_med:.3f} s {[round(t, 3) for t in g_walls]}; "
+          f"first run {first_wall:.3f} s ({stats['captures']} captures, "
+          f"{stats['capture_s']:.3f} s); peak above the inputs eager "
+          f"{rec['eager_peak_gib']:.3f} GiB, graphs {rec['graph_peak_gib']:.3f}"
+          f" GiB, kept {rec['graphs_kept_gib']:.3f} GiB; bitwise {bitwise}; "
+          f"{rec['phase_s']:.1f} s")
+    for name, prof in (("eager", e_prof), ("graphs", g_prof)):
+        print(f"  profiled {name}: wall {prof['wall_ms']:.1f} ms, host launch"
+              f" calls {prof['host_launch_calls']} "
+              f"{prof['host_launch_calls_by_api']}, device kernels "
+              f"{prof['device_kernels']}, busy {prof['device_busy_ms']:.1f} "
+              f"ms, idle share {prof['idle_share']:.3f} (unprofiled "
+              f"{prof['idle_share_unprofiled']:.3f})")
+    print(f"  launches eager {e_counts}, first graph run {f_counts}, replays "
+          f"{g_counts}; ICM sweeps per eager call {sweeps}")
+    if "icm_fixed_sweeps" in rec:
+        icm = rec["icm_fixed_sweeps"]
+        print(f"  eager with the ICM's fixed sweeps: busy "
+              f"{icm['eager_profile']['device_busy_ms']:.1f} ms, "
+              f"{icm['extra_device_ms']:+.1f} ms "
+              f"({icm['extra_share_of_busy']:+.1%} of the eager busy time)")
+    check(all(bitwise.values()), f"graphs {route}: the captured slice equals "
+          f"the eager slice bitwise ({bitwise})")
+    check(e_counts == f_counts == g_counts,
+          f"graphs {route}: the launch counters count the same kernels "
+          "eager, on the first graph run and on replays")
+    _check_launches(route, g_counts, f"graphs {route} replay")
+    check(e_prof["device_busy_ms"] > 0 and g_prof["device_busy_ms"] > 0,
+          f"graphs {route}: the profiler saw device time both ways")
+    if route == "merged":
+        check(rec["graph_flow_recovery_err_px"] <= RECOVERY_TOL,
+              f"graphs merged flow_recovery_err_px "
+              f"{rec['graph_flow_recovery_err_px']:.5f} <= {RECOVERY_TOL}")
+
+
+def graphs_dispatch():
+    """Phase 14: the bench slice eager against captured on three routes."""
+    for route in GRAPH_ROUTES:
+        _graph_route(route)
+
+
 def main() -> int:
     import torch
 
@@ -1743,6 +1965,17 @@ def main() -> int:
         return _sharded_solve_child(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--sp-solve"]:
         return _sp_solve_child(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--graphs"]:
+        global GRAPHS_FULL_DEPTH
+        GRAPHS_FULL_DEPTH = True
+        OUT_DIR.mkdir(exist_ok=True)
+        for fn in (build, graphs_dispatch):
+            phase(fn)
+        with open(OUT_DIR / "chip_smoke_graphs.json", "w") as fh:
+            json.dump(RECORD, fh, indent=1)
+        print("graphs phase " + ("FAILED:\n  " + "\n  ".join(FAILURES)
+                                 if FAILURES else "ok"))
+        return 1 if FAILURES else 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1758,7 +1991,7 @@ def main() -> int:
                slice_stack_composed, slice_unfused_pallas_warp,
                slice_profiles, cli_stage2, cli_stage2_epic, stage1,
                epicflow_cli, stage3_final_pair, stage3_batched, cli_stage3,
-               pipeline, sharded_solve, sp_solve):
+               pipeline, sharded_solve, sp_solve, graphs_dispatch):
         phase(fn)
 
     kv = RECORD.get("kernels_vs_twins", {})

@@ -14,6 +14,7 @@ and occupancy entries fill a host array and return a `cudaError_t` too.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -67,15 +68,39 @@ _SIGNATURES = {
 # launches of each kernel wrapper; read and reset by callers that must show
 # a path went through the kernels. warp_stack and warp_stack_pallas are the
 # K4 and K6 entries of one kernel. Shards launch from several host threads,
-# so the counts change under a lock.
+# so the counts change under a lock. While a thread captures a CUDA graph
+# its wrappers count into the graph's own record instead (`recording`), and
+# every replay of that graph adds the record (`add_launches`).
 LAUNCHES = {"warp_assemble": 0, "solve_step": 0, "fused_data": 0,
             "warp_stack": 0, "warp_stack_pallas": 0, "sor": 0}
 _count_lock = threading.Lock()
+_recorder = threading.local()
 
 
 def count_launch(name: str) -> None:
+    record = getattr(_recorder, "counts", None)
+    if record is not None:
+        record[name] += 1
+        return
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+def add_launches(counts: dict) -> None:
+    with _count_lock:
+        for k, v in counts.items():
+            LAUNCHES[k] += v
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's launches into the yielded dict, not LAUNCHES."""
+    counts = dict.fromkeys(LAUNCHES, 0)
+    _recorder.counts = counts
+    try:
+        yield counts
+    finally:
+        _recorder.counts = None
 
 
 def reset_launch_counts() -> None:

@@ -8,7 +8,9 @@ card, or CPU entries in the tests).
 `jet` axis: jets share nothing, so a batch of jet windows splits into one
 contiguous chunk per mesh row and each chunk is solved where it lies: pure
 data parallelism, the reference's OpenMP-over-jets loop (slow_flow.cpp:706)
-across cards (`run_sharded`). Each shard runs on its own host thread. On
+across cards (`run_sharded`). Each shard runs on its own host thread, the
+same one for a mesh position from call to call, since the level's CUDA
+graphs are cached per host thread (variational/graphs.py). On
 CUDA the thread enters `torch.cuda.device(d)` and a stream of its own before
 its first launch (the kernels launch on the thread's current device and
 stream), waits for the caller's stream that staged its inputs, and
@@ -24,6 +26,7 @@ path, for one level, as in the JAX package.
 """
 from __future__ import annotations
 
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -119,6 +122,19 @@ def shard_jet_batch(mesh, *tensors, spatial_axis: int | None = None
     return out
 
 
+# one host thread per mesh position, kept from call to call
+_WORKERS: dict = {}
+_workers_lock = threading.Lock()
+
+
+def _worker(i: int) -> ThreadPoolExecutor:
+    with _workers_lock:
+        if i not in _WORKERS:
+            _WORKERS[i] = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=f"shard{i}")
+        return _WORKERS[i]
+
+
 def run_sharded(mesh, fn, *tensors):
     """fn(*chunk) for each device's chunk of the batch (`shard_jet_batch`),
     each on its own host thread (on CUDA inside `torch.cuda.device(d)` on a
@@ -141,9 +157,9 @@ def run_sharded(mesh, fn, *tensors):
             stream.synchronize()
             return out
 
-    with ThreadPoolExecutor(max_workers=len(mesh)) as ex:
-        futures = [ex.submit(work, d, args) for d, args in zip(mesh, shards)]
-        outs = [f.result() for f in futures]
+    futures = [_worker(i).submit(work, d, args)
+               for i, (d, args) in enumerate(zip(mesh, shards))]
+    outs = [f.result() for f in futures]
     gathered = tuple(torch.cat([o.to(mesh[0]) for o in parts])
                      for parts in zip(*outs))
     # the shards' outputs were made on their own streams and the gather

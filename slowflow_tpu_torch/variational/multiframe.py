@@ -6,6 +6,13 @@ flag on the device; a jet that has converged keeps its state (torch.where),
 which reproduces the per-jet exits of the JAX package's unrolled jets. The
 loop-exit tests read `live.any()` on the host once per iteration.
 
+A level is cut into segments that read nothing on the host (`_Level`):
+the start, the alternation top, one outer iteration, one further inner
+iteration, the outer tail, the alternation end; the host loop reads the
+exit flags between them. On CUDA (without strips) each segment replays a
+cached CUDA graph (variational/graphs.py), the counterpart of the JAX
+package's jit: the same kernels in the same order, bitwise the eager level.
+
 The kernels that carry one level follow `p.route()` (params.py):
   merged   the state is the flow itself; K2 warps and assembles per call;
   stack    the state is (warped window, raw mask): K4 warps once per outer
@@ -35,6 +42,8 @@ when the flow outgrows them. Without one every hook is skipped.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -44,6 +53,7 @@ from ..core.warp_pallas import warp_stack_pallas
 from ..core.warp_shift import warp_stack
 from ..parallel.mesh import make_mesh, run_sharded
 from ..runtime import as_f32, device_of, on_device
+from . import graphs
 from .fused_data import fused_data_system
 from .fused_solve import solve_step
 from .fused_warp import warp_assemble
@@ -121,75 +131,122 @@ def _level_state(route, seq, channel_w, p: MultiFrameParams, rows=None):
     return derive, occ_costs, data_terms
 
 
-def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
-                      p: MultiFrameParams, strips=None):
-    """Alternating discrete / continuous minimization at one pyramid level.
+class _Level:
+    """One pyramid level's alternating solve (`compute_one_level`) over a
+    state namespace `st`, cut into segments that read nothing on the host,
+    and the host loop that runs them and reads the exit flags between them
+    (`drive`).
 
-    wx, wy [B, H, W]; seq [B, 2ref+1, 3, H, W]; channel_w [B, 3, H, W];
-    norm_avg, norm_std [B, 3]. Returns (wx, wy, occlusions in {-1, 0, +1}).
-    `strips` (parallel/strips.py `Strips`): the batch is this device's strip
-    windows (module docstring); the result is those windows."""
-    ref = p.ref
-    b, _, _, h, w = seq.shape
-    hw = h * w if strips is None else strips.img_h * w
-    dev = seq.device
-    route = p.route()
-    _, _, reg_pen = p.penalties()
-    dn = data_norm(p)
-    occ_step = p.occlusion_reasoning and not p.one_direction
-    fuse_occ = route.fuse_occ and p.niter_outer >= 1
-    occ = torch.full_like(wx, -1.0) \
-        if (p.one_direction or p.occlusion_reasoning) else torch.zeros_like(wx)
-    dpsis = compute_dpsis_weight_mt(seq[:, ref], norm_avg, norm_std, 5.0,
-                                    p.hbit)
-    inf = torch.full((b,), float("inf"), device=dev)
-    rows = None if strips is None else strips.rows
-    derive, occ_costs, data_terms = _level_state(route, seq, channel_w, p,
-                                                 rows)
+    `st` holds the flow wx, wy and labels occ [B, H, W], dpsis, per-jet
+    alive (alternation), live (outer) and ilive (inner) flags, change /
+    ichange, stable, the route's derived state (not on the merged route,
+    whose state is the flow), and the inner loop's du, dv, uu, vv. Each
+    segment ends by marking the flag that the next host read tests. Eagerly
+    `st` is a plain namespace and the read is `live.any()` (over a jet's
+    strips with `strips`); in a graph program (variational/graphs.py) `st`
+    is that program's Slots, a segment writes `flag` = live.any() and the
+    host reads it between replays, and the ICM runs its sweeps with no
+    per-sweep read."""
 
-    def any_live(live):
-        return bool(live.any()) if strips is None else strips.any(live)
+    def __init__(self, seq, channel_w, norm_avg, norm_std,
+                 p: MultiFrameParams, strips=None, st=None):
+        self.graphed = st is not None
+        self.st = SimpleNamespace() if st is None else st
+        self.p = p
+        self.route = p.route()
+        self.seq, self.channel_w = seq, channel_w
+        self.norm_avg, self.norm_std = norm_avg, norm_std
+        self.strips = strips
+        self.rows = None if strips is None else strips.rows
+        b, _, _, h, w = seq.shape
+        self.b = b
+        self.hw = h * w if strips is None else strips.img_h * w
+        _, _, self.reg_pen = p.penalties()
+        self.dn = data_norm(p)
+        self.occ_step = p.occlusion_reasoning and not p.one_direction
+        self.fuse_occ = first_system(p)
+        self.marked = None
+        self._bind()
 
-    def entry_sum(x):
+    def _bind(self):
+        self.derive, self.occ_costs, self.data_terms = _level_state(
+            self.route, self.seq, self.channel_w, self.p, self.rows)
+
+    def _dpsis(self):
+        return compute_dpsis_weight_mt(self.seq[:, self.p.ref], self.norm_avg,
+                                       self.norm_std, 5.0, self.p.hbit)
+
+    def _inf(self):
+        return torch.full((self.b,), float("inf"), device=self.seq.device)
+
+    def _derive(self):
+        if self.route.assembly != "merged":
+            self.st.state = self.derive(self.st.wx, self.st.wy)
+
+    def _state(self):
+        """The derived state at the current linearization point."""
+        st = self.st
+        return (st.wx, st.wy) if self.route.assembly == "merged" \
+            else st.state
+
+    # ------------------------------------------------------ host reads
+    def mark(self, live):
+        """`live` is what the next host read tests."""
+        if self.graphed:
+            self.st.flag = live.any()
+        else:
+            self.marked = live
+
+    def read(self) -> bool:
+        """Whether any jet of the last marked flag is live (over a jet's
+        strips with `strips`)."""
+        if self.graphed:
+            return bool(self.st.flag)
+        if self.strips is None:
+            return bool(self.marked.any())
+        return self.strips.any(self.marked)
+
+    # ---------------------------------------------------------- helpers
+    def entry_sum(self, x):
         """Sums of [B, H, W] planes per batch entry (a strip window's own
         rows)."""
-        return x.sum((1, 2)) if strips is None else strips.own_sum(x)
+        return x.sum((1, 2)) if self.strips is None \
+            else self.strips.own_sum(x)
 
-    def image_sum(x):
+    def image_sum(self, x):
         """Sums of [B, H, W] planes per jet, over its whole image."""
-        return entry_sum(x) if strips is None \
-            else strips.jet_sum(entry_sum(x))
+        return self.entry_sum(x) if self.strips is None \
+            else self.strips.jet_sum(self.entry_sum(x))
 
-    def cover(wx, wy, occ):
+    def cover(self):
         """With strips, widen every window that the warp by wy outgrows."""
-        nonlocal seq, channel_w, dpsis, rows, derive, occ_costs, data_terms
+        strips, st = self.strips, self.st
         if strips is None:
-            return wx, wy, occ
-        wider = strips.cover(wy, seq, channel_w, wx, wy, occ)
+            return
+        wider = strips.cover(st.wy, self.seq, self.channel_w, st.wx, st.wy,
+                             st.occ)
         if wider is None:
-            return wx, wy, occ
-        seq, channel_w, wx, wy, occ = wider
-        rows = strips.rows
-        dpsis = compute_dpsis_weight_mt(seq[:, ref], norm_avg, norm_std, 5.0,
-                                        p.hbit)
-        derive, occ_costs, data_terms = _level_state(route, seq, channel_w,
-                                                     p, rows)
-        return wx, wy, occ
+            return
+        self.seq, self.channel_w, st.wx, st.wy, st.occ = wider
+        self.rows = strips.rows
+        st.dpsis = self._dpsis()
+        self._bind()
 
-    def solve(uu, vv, du, dv, system):
+    def solve(self, uu, vv, du, dv, system):
         """(ndu, ndv, sums [B, 2] of |ndu - du|, |ndv - dv|); du / dv None
         means the sweeps start from zero. With strips the ghost rows of
         ndu / ndv are refreshed and the sums are the jets'."""
-        if route.solve == "fused":
+        p, rows = self.p, self.rows
+        if self.route.solve == "fused":
             ndu, ndv, sums = solve_step(
-                uu, vv, dpsis, *system, du, dv, alpha=p.alpha,
-                reg_pen=reg_pen, method=p.smoothing,
+                uu, vv, self.st.dpsis, *system, du, dv, alpha=p.alpha,
+                reg_pen=self.reg_pen, method=p.smoothing,
                 iterations=p.niter_solver, omega=p.sor_omega,
                 with_change=True, rows=rows)
         else:
             a11, a12, a22, b1, b2 = system
-            wh, wv = compute_smoothness_mt(uu, vv, dpsis, p.alpha, reg_pen,
-                                           p.smoothing)
+            wh, wv = compute_smoothness_mt(uu, vv, self.st.dpsis, p.alpha,
+                                           self.reg_pen, p.smoothing)
             b1 = sub_laplacian(b1, uu, wh, wv)
             b2 = sub_laplacian(b2, vv, wh, wv)
             du0 = torch.zeros_like(uu) if du is None else du
@@ -197,100 +254,196 @@ def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
             ndu, ndv = sor_coupled_rb_pallas(
                 du0, dv0, a11, a12, a22, b1, b2, wh, wv,
                 iterations=p.niter_solver, omega=p.sor_omega, rows=rows)
-            sums = torch.stack([entry_sum((ndu - du0).abs()),
-                                entry_sum((ndv - dv0).abs())], -1)
-        if strips is not None:
-            strips.exchange(ndu, ndv)
-            sums = strips.jet_sum(sums)
+            sums = torch.stack([self.entry_sum((ndu - du0).abs()),
+                                self.entry_sum((ndv - dv0).abs())], -1)
+        if self.strips is not None:
+            self.strips.exchange(ndu, ndv)
+            sums = self.strips.jet_sum(sums)
         return ndu, ndv, sums
 
-    def rate(sums):
-        return torch.maximum(sums[:, 0], sums[:, 1]) / hw
+    def rate(self, sums):
+        return torch.maximum(sums[:, 0], sums[:, 1]) / self.hw
 
-    def inner(wx0, wy0, state, occ, live):
-        """IRLS increments at the linearization point (wx0, wy0), whose
-        state is `state`. Returns (uu, vv, change of the last increment)."""
-        du = dv = None
-        uu, vv, change = wx0, wy0, inf
-        for it in range(p.niter_inner):
-            if it > 0 and not any_live(live):
-                break
-            system = data_terms(state, du, dv, occ)
-            ndu, ndv, sums = solve(uu, vv, du, dv, system)
-            du = ndu if du is None else _freeze(live, ndu, du)
-            dv = ndv if dv is None else _freeze(live, ndv, dv)
-            uu = _freeze(live, wx0 + ndu, uu)
-            vv = _freeze(live, wy0 + ndv, vv)
-            change = torch.where(live, rate(sums), change)
-            live = live & (change >= p.thres_inner)
-        return uu, vv, change
-
-    def outer(wx, wy, occ, live, state, first_system):
-        """Re-warp / re-linearize loop from the alternation-top `state`.
-        first_system: the already assembled iteration-0 system (fused
-        occlusion route), solved from zero. Returns (wx, wy, occ, change):
-        with strips a widening replaces occ's windows too."""
-        change = inf
-        start = 0
-        if first_system is not None:
-            ndu, ndv, sums = solve(wx, wy, None, None, first_system)
-            wx = _freeze(live, wx + ndu, wx)
-            wy = _freeze(live, wy + ndv, wy)
-            change = torch.where(live, rate(sums), change)
-            live = live & (change >= p.thres_outer)
-            start = 1
-        for it in range(start, p.niter_outer):
-            if not any_live(live):
-                break
-            if it > 0:
-                wx, wy, occ = cover(wx, wy, occ)
-                state = derive(wx, wy)
-            uu, vv, ch = inner(wx, wy, state, occ, live)
-            if p.niter_inner != 1:
-                ch = torch.maximum(image_sum((uu - wx).abs()),
-                                   image_sum((vv - wy).abs())) / hw
-            wx = _freeze(live, uu, wx)
-            wy = _freeze(live, vv, wy)
-            change = torch.where(live, ch, change)
-            live = live & (change >= p.thres_outer)
-        return wx, wy, occ, change
-
-    def relabel(e0, e1):
-        lab = solve_binary_potts(e0, e1, p.occlusion_alpha, p.niter_graphc,
-                                 strips)
+    def relabel(self, e0, e1):
+        lab = solve_binary_potts(e0, e1, self.p.occlusion_alpha,
+                                 self.p.niter_graphc, self.strips,
+                                 early_exit=not self.graphed)
         occ = 2.0 * lab - 1.0
-        if strips is not None:
-            strips.exchange(occ)
+        if self.strips is not None:
+            self.strips.exchange(occ)
         return occ
 
-    alive = torch.ones(b, dtype=torch.bool, device=dev)
-    for it in range(p.niter_alter):
-        if it > 0 and not any_live(alive):
-            break
-        wx, wy, occ = cover(wx, wy, occ)
-        state = derive(wx, wy)
-        first_system = None
-        new_occ = occ
-        stable = torch.ones(b, dtype=torch.bool, device=dev)
-        if fuse_occ:
-            outs = warp_assemble(seq, wx, wy, None, None, None, channel_w, p,
-                                 mode="occ_assembly", zero_duv=True,
-                                 rows=rows)
-            if it > 0:
-                new_occ = relabel(outs[0], outs[1])
-            backward, forward = direction_weights(new_occ, dn)
-            first_system = tuple(backward * sb + forward * sf for sb, sf
-                                 in zip(outs[2:7], outs[7:12]))
-        elif occ_step and it > 0:
-            new_occ = relabel(*occ_costs(state))
-        if occ_step:
-            stable = image_sum((new_occ != occ).float()) == 0 if it > 0 \
-                else torch.zeros_like(stable)
-        occ = _freeze(alive, new_occ, occ)
-        wx, wy, occ, change = outer(wx, wy, occ, alive, state, first_system)
-        # fixed-point exit: labels repeat and the flow moved below thres
-        alive = alive & ~(stable & (change < p.thres_outer))
-    return wx, wy, occ
+    # --------------------------------------------------------- segments
+    def start(self):
+        """Labels, dpsis and alive for a level whose st.wx / st.wy are
+        set."""
+        st, p = self.st, self.p
+        st.occ = torch.full_like(st.wx, -1.0) \
+            if (p.one_direction or p.occlusion_reasoning) \
+            else torch.zeros_like(st.wx)
+        st.dpsis = self._dpsis()
+        st.alive = torch.ones(self.b, dtype=torch.bool,
+                              device=self.seq.device)
+
+    def top(self, later: bool):
+        """The alternation top: the state, the relabel (from the second
+        alternation on) and, on the fused-occlusion route, the first outer
+        iteration's system solved from zero."""
+        st, p = self.st, self.p
+        self._derive()
+        first = None
+        new_occ = st.occ
+        if self.fuse_occ:
+            outs = warp_assemble(self.seq, st.wx, st.wy, None, None, None,
+                                 self.channel_w, p, mode="occ_assembly",
+                                 zero_duv=True, rows=self.rows)
+            if later:
+                new_occ = self.relabel(outs[0], outs[1])
+            backward, forward = direction_weights(new_occ, self.dn)
+            first = tuple(backward * sb + forward * sf for sb, sf
+                          in zip(outs[2:7], outs[7:12]))
+        elif self.occ_step and later:
+            new_occ = self.relabel(*self.occ_costs(self._state()))
+        stable = torch.ones(self.b, dtype=torch.bool, device=self.seq.device)
+        if self.occ_step:
+            stable = self.image_sum((new_occ != st.occ).float()) == 0 \
+                if later else torch.zeros_like(stable)
+        st.stable = stable
+        st.occ = _freeze(st.alive, new_occ, st.occ)
+        live, change = st.alive, self._inf()
+        if first is not None:
+            ndu, ndv, sums = self.solve(st.wx, st.wy, None, None, first)
+            st.wx = _freeze(live, st.wx + ndu, st.wx)
+            st.wy = _freeze(live, st.wy + ndv, st.wy)
+            change = torch.where(live, self.rate(sums), change)
+            live = live & (change >= p.thres_outer)
+        st.change = change
+        st.live = live
+        self.mark(live)
+
+    def outer(self, later: bool):
+        """One outer iteration: the state again after the first, then the
+        first inner iteration (IRLS increments from zero); with one inner
+        iteration also the outer update."""
+        st, p = self.st, self.p
+        if later:
+            self._derive()
+        live = st.live
+        system = self.data_terms(self._state(), None, None, st.occ)
+        ndu, ndv, sums = self.solve(st.wx, st.wy, None, None, system)
+        uu = _freeze(live, st.wx + ndu, st.wx)
+        vv = _freeze(live, st.wy + ndv, st.wy)
+        ichange = torch.where(live, self.rate(sums), self._inf())
+        if p.niter_inner == 1:
+            self._outer_update(uu, vv, ichange)
+            return
+        st.du, st.dv, st.uu, st.vv, st.ichange = ndu, ndv, uu, vv, ichange
+        st.ilive = live & (ichange >= p.thres_inner)
+        self.mark(st.ilive)
+
+    def inner(self):
+        """One further inner iteration at the outer linearization point."""
+        st, p = self.st, self.p
+        ilive = st.ilive
+        system = self.data_terms(self._state(), st.du, st.dv, st.occ)
+        ndu, ndv, sums = self.solve(st.uu, st.vv, st.du, st.dv, system)
+        st.du = _freeze(ilive, ndu, st.du)
+        st.dv = _freeze(ilive, ndv, st.dv)
+        st.uu = _freeze(ilive, st.wx + ndu, st.uu)
+        st.vv = _freeze(ilive, st.wy + ndv, st.vv)
+        st.ichange = torch.where(ilive, self.rate(sums), st.ichange)
+        st.ilive = ilive & (st.ichange >= p.thres_inner)
+        self.mark(st.ilive)
+
+    def tail(self):
+        """The outer update after several inner iterations."""
+        self._outer_update(self.st.uu, self.st.vv, None)
+
+    def _outer_update(self, uu, vv, ch):
+        st, p = self.st, self.p
+        live = st.live
+        if p.niter_inner != 1:
+            ch = torch.maximum(self.image_sum((uu - st.wx).abs()),
+                               self.image_sum((vv - st.wy).abs())) / self.hw
+        st.wx = _freeze(live, uu, st.wx)
+        st.wy = _freeze(live, vv, st.wy)
+        st.change = torch.where(live, ch, st.change)
+        st.live = live & (st.change >= p.thres_outer)
+        self.mark(st.live)
+
+    def end(self):
+        """Fixed-point exit: labels repeat and the flow moved below thres."""
+        st = self.st
+        st.alive = st.alive & ~(st.stable & (st.change < self.p.thres_outer))
+        self.mark(st.alive)
+
+    # --------------------------------------------------------- the loop
+    def drive(self, run):
+        """The level's host loop: each segment through run(segment, fn),
+        the exit flags read between them where the loops test them."""
+        p = self.p
+        run(("start",), self.start)
+        for it in range(p.niter_alter):
+            if it > 0 and not self.read():
+                break
+            self.cover()
+            run(("top", it > 0), lambda: self.top(it > 0))
+            for oit in range(1 if self.fuse_occ else 0, p.niter_outer):
+                if not self.read():
+                    break
+                if oit > 0:
+                    self.cover()
+                run(("outer", oit > 0), lambda: self.outer(oit > 0))
+                if p.niter_inner > 1:
+                    for _ in range(1, p.niter_inner):
+                        if not self.read():
+                            break
+                        run(("inner",), self.inner)
+                    run(("tail",), self.tail)
+            run(("end",), self.end)
+
+
+def first_system(p: MultiFrameParams) -> bool:
+    """Whether the alternation top assembles and solves the first outer
+    iteration's system (the fused-occlusion route)."""
+    return p.route().fuse_occ and p.niter_outer >= 1
+
+
+def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
+                      p: MultiFrameParams, strips=None, *, _eager=False):
+    """Alternating discrete / continuous minimization at one pyramid level.
+
+    wx, wy [B, H, W]; seq [B, 2ref+1, 3, H, W]; channel_w [B, 3, H, W];
+    norm_avg, norm_std [B, 3]. Returns (wx, wy, occlusions in {-1, 0, +1}).
+    `strips` (parallel/strips.py `Strips`): the batch is this device's strip
+    windows (module docstring); the result is those windows.
+
+    On CUDA without strips the level replays this thread's cached CUDA
+    graphs of its segments (variational/graphs.py), bitwise equal to the
+    eager level; on the CPU and with strips it runs eagerly. `_eager` (for
+    tests and chip_smoke.py only) runs a CUDA level eagerly."""
+    if _eager or strips is not None or seq.device.type != "cuda":
+        level = _Level(seq, channel_w, norm_avg, norm_std, p, strips)
+        level.st.wx, level.st.wy = wx, wy
+        level.drive(lambda segment, fn: fn())
+        return level.st.wx, level.st.wy, level.st.occ
+    b, _, _, h, w = seq.shape
+    key = graphs.level_key(seq.device, p, b, h, w, first_system(p))
+    try:
+        prog = graphs.program(key, lambda: graphs.Program(seq.device))
+        ins = prog.inputs
+        ins.seq, ins.channel_w = seq, channel_w
+        ins.norm_avg, ins.norm_std = norm_avg, norm_std
+        if prog.level is None:
+            prog.level = _Level(ins.seq, ins.channel_w, ins.norm_avg,
+                                ins.norm_std, p, st=prog.state)
+        st = prog.state
+        st.wx, st.wy = wx, wy
+        prog.level.drive(prog.run)
+        return st.wx.clone(), st.wy.clone(), st.occ.clone()
+    except BaseException:
+        graphs.discard(key)
+        raise
 
 
 def _mt_pipeline(wx, wy, seq, channel_w, norm_avg, norm_std,

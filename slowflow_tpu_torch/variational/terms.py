@@ -11,6 +11,8 @@ device.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 import torch.nn.functional as F
 
@@ -19,8 +21,24 @@ from ..core.conv import DERIV_3PT, DERIV_5PT, conv_horiz, conv_vert, \
 from ..core.warp import warp_bilinear
 from ..core.rows import red_cells
 
+# eager ICM calls by the number of sweeps they ran (solve_binary_potts)
+ICM_SWEEPS: collections.Counter = collections.Counter()
+
 DATANORM = 0.1 * 0.1          # data-term normalization epsilon
 DT_SCALE_GRAPHC = 0.01        # occlusion data-cost scale
+
+
+# device copies of small per-offset weight tables, made once per device: a
+# copy from the host waits on the stream, which a CUDA graph capture refuses
+_CONSTS: dict = {}
+
+
+def _const(values, device) -> torch.Tensor:
+    """float32 [n] tensor of `values` on `device` (shared: do not write)."""
+    key = (tuple(float(v) for v in values), torch.device(device))
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.tensor(key[0], dtype=torch.float32, device=device)
+    return _CONSTS[key]
 
 
 def _fold(x, dims=(-3,)):
@@ -211,8 +229,8 @@ def add_data_terms(du, dv, mask, succ, to_ref, channel_w, p):
     dev = mask.device
     rho, om = succ_weights(p)
     n = len(rho)
-    rho_w = torch.tensor(rho, dtype=torch.float32, device=dev).view(n, 1, 1)
-    omega_w = torch.tensor(om, dtype=torch.float32, device=dev).view(n, 1, 1)
+    rho_w = _const(rho, dev).view(n, 1, 1)
+    omega_w = _const(om, dev).view(n, 1, 1)
     cw = channel_w.unsqueeze(-4)                     # [..., 1, 3, H, W]
     du = du.unsqueeze(-3).unsqueeze(-3)              # [..., 1, 1, H, W]
     dv = dv.unsqueeze(-3).unsqueeze(-3)
@@ -261,8 +279,7 @@ def add_data_terms(du, dv, mask, succ, to_ref, channel_w, p):
         b1 = b1 + _fold(c1 * ixx * ixz + c2 * ixy * iyz, dims)
         b2 = b2 + _fold(c2 * iyy * iyz + c1 * ixy * ixz, dims)
 
-    fac = torch.tensor(ref_factors(p), dtype=torch.float32,
-                       device=dev).view(n, 1, 1, 1)
+    fac = _const(ref_factors(p), dev).view(n, 1, 1, 1)
     facsq = fac * fac
     ix, iy, iz = to_ref["ix"], to_ref["iy"], to_ref["iz"]
     ixx, ixy, iyy = to_ref["ixx"], to_ref["ixy"], to_ref["iyy"]
@@ -334,10 +351,8 @@ def occlusion_data_costs(mask, succ, to_ref, p):
     n = 2 * ref
     dev = mask.device
     idx = [max(ref - s - 1, s - ref) for s in range(n)]
-    rho = torch.tensor([p.rho[i] for i in idx], dtype=torch.float32,
-                       device=dev).view(n, 1, 1)
-    om = torch.tensor([p.omega[i] for i in idx], dtype=torch.float32,
-                      device=dev).view(n, 1, 1)
+    rho = _const([p.rho[i] for i in idx], dev).view(n, 1, 1)
+    om = _const([p.omega[i] for i in idx], dev).view(n, 1, 1)
     hd = p.delta / 3.0
     hg = p.gamma / 3.0
 
@@ -364,14 +379,19 @@ def occlusion_data_costs(mask, succ, to_ref, p):
             DT_SCALE_GRAPHC * e1 / n1 + p.occlusion_penalty)
 
 
-def solve_binary_potts(e0, e1, alpha: float, iterations: int, strips=None):
+def solve_binary_potts(e0, e1, alpha: float, iterations: int, strips=None,
+                       early_exit: bool = True):
     """Binary Potts MRF on the 4-connected grid by red-black ICM.
 
     Three starts (the data-cost argmin and both constant labelings) sweep
     together until none changes or `iterations` sweeps ran; the start with
     the lowest energy wins. A settled start is a fixed point, so running on
     until the last one settles changes nothing for it. The per-sweep changed
-    flag is read on the host. Returns labels {0, 1} as float32 [..., H, W].
+    flag is read on the host, and the sweeps run are counted in
+    ICM_SWEEPS; with `early_exit` False all `iterations` sweeps run and
+    nothing is read (the labels are the same: a settled start stays
+    settled), as inside a CUDA graph. Returns labels {0, 1} as float32
+    [..., H, W].
 
     `strips` (parallel/strips.py `Strips`): e0 / e1 [E, H, W] are strip
     windows. The colours follow the image's rows, `changed` looks at own
@@ -400,15 +420,17 @@ def solve_binary_potts(e0, e1, alpha: float, iterations: int, strips=None):
 
     lab = (e1 < e0).to(e0.dtype)
     cands = torch.stack([lab, torch.zeros_like(lab), torch.ones_like(lab)], -3)
-    for _ in range(iterations):
+    sweeps = 0
+    for sweeps in range(1, iterations + 1):
         new = half(half(cands, red), ~red)
-        if strips is None:
-            changed = bool((new != cands).any())
-        else:
-            changed = strips.any((new != cands) & strips.own.unsqueeze(-3))
+        settled = early_exit and not (
+            bool((new != cands).any()) if strips is None
+            else strips.any((new != cands) & strips.own.unsqueeze(-3)))
         cands = new
-        if not changed:
+        if settled:
             break
+    if early_exit:
+        ICM_SWEEPS[sweeps] += 1
 
     unary = torch.where(cands > 0.5, e1s, e0s)
     horiz = (cands[..., :, 1:] - cands[..., :, :-1]).abs()

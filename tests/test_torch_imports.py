@@ -59,6 +59,7 @@ def test_cli_import_leaves_the_jax_package_out():
         import slowflow_tpu_torch.bench_pipeline
         import slowflow_tpu_torch.parallel.mesh
         import slowflow_tpu_torch.utils.tracing
+        import slowflow_tpu_torch.variational.graphs
         print(sorted(m for m in sys.modules
                      if m.split(".")[0] in ("slowflow_tpu", "bench", "jax")))
     """)
