@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: its kernels, the stage-2 jet
 solve, the EPIC init, every CLI, stage 3, the three-stage pipeline, the
-jet split over two shards, the row split of one level over strips and the
-level's CUDA graphs against its eager dispatch.
+jet split over two shards, the row split of one level over strips, and
+the CUDA graphs of the level, of stage 3 and of the distance transform
+against their eager dispatch.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --graphs     # phases 1 and 14 alone
+    python3 chip_smoke.py --stage3     # phases 1 and 15 alone
 
 On CUDA the jet solve's levels replay cached CUDA graphs
 (slowflow_tpu_torch/variational/graphs.py), so phases 3, 5, 11 and 12 run
 through them; phase 3's twin run and phase 13's unsharded level take the
-eager level (compute_one_level's private `_eager`, `eager_levels`).
+eager level (compute_one_level's private `_eager`, `eager_levels`). Stage
+3's alternation and TRW / BP solve and the EPIC distance transform replay
+theirs too, so phases 5-11 run through them; phase 15 holds them to their
+eager form (`_eager`, `eager_dts`).
 
 Phases (any failure makes the script exit non-zero without the final line):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
@@ -69,7 +74,8 @@ Phases (any failure makes the script exit non-zero without the final line):
      idle share of each alternation;
   9. stage3_batched: final pairs of seeds 0 and 1 as one batch of 2 and
      as two serial calls: flows within 1e-4 px, occlusion maps equal, wall
-     per final and peak memory both ways;
+     per final and peak memory both ways, on replays of the CUDA graphs (an
+     untimed batch captures the batched shape first);
  10. cli_stage3: the stage-2 CLI (bench config, deep_matching 0, Jets 4,
      S = 3) on the scene's PNGs at 270x480, then the stage-3 CLI with
      -threads 2 -batch_finals 2 over 2 final pairs of 2 jets
@@ -122,6 +128,19 @@ Phases (any failure makes the script exit non-zero without the final line):
      with every ICM call running all its sweeps). The whole run cuts the
      unfused route to phase 3's depth (2 levels, 2 x 3) for time;
      `--graphs` runs it at the bench depth too.
+ 15. stage3_dispatch: phase 8's final pair eager (the alternation, the
+     solve and the distance transforms) against the CUDA graphs: the
+     flows, occlusion maps, every solve's labels, energies and bounds and
+     the final bank bitwise equal on the first (capturing) run and on the
+     replay, which captures nothing; per side the wall, the six
+     result.info rows, under torch.profiler the host's launch calls by API,
+     the device kernels, busy time and the idle share in all and per
+     alternation; the first run's captures and seconds, peak memory above
+     the inputs eager and with the graphs, what the graphs keep;
+     dt_flow_err_px <= 0.10 and equal both ways. Then the distance
+     transform at the stage-2 init's shape (4 x 270 x 480) and stage 3's
+     (10 x 135 x 240), eager against its graph: bitwise, walls, launch
+     calls, device kernels, idle share, one capture.
 Prints a JSON line with one entry per kernel (K3's also with its other
 modes' times at the bench shape), then
 {"ok": true, "device": {...}} as the last line. A detailed record goes to
@@ -224,6 +243,20 @@ def eager_levels(on: bool = True):
         return
     with mock.patch.object(multiframe, "compute_one_level", functools.partial(
             multiframe.compute_one_level, _eager=True)):
+        yield
+
+
+@contextlib.contextmanager
+def eager_dts(on: bool = True):
+    """While open (and `on`), every distance_transform call runs eagerly
+    (its private `_eager`), the reference its CUDA graphs are held to."""
+    from slowflow_tpu_torch.epic import distance
+
+    if not on:
+        yield
+        return
+    with mock.patch.object(distance, "distance_transform", functools.partial(
+            distance.distance_transform, _eager=True)):
         yield
 
 
@@ -358,13 +391,37 @@ def _grid_sample(seq, wx, wy, factors) -> dict:
                 library_device_ms=_one_call_profile(call)["device_ms"])
 
 
-def _kernel_events(prof):
-    """The CUDA kernels a torch.profiler run saw (no memcpy / memset)."""
+def _raw_events(prof):
+    """(name, on the device, start ns, end ns) of every record of a
+    finished torch.profiler run, read as the profiler keeps them: building
+    its event objects (`prof.events()`) takes ~40 s for a stage-3 final
+    pair's ~600,000 records, this under a second."""
     from torch.autograd import DeviceType
 
-    return [ev for ev in prof.events()
-            if getattr(ev, "device_type", None) == DeviceType.CUDA
-            and not ev.name.startswith(("Memcpy", "Memset"))]
+    return [(ev.name(), ev.device_type() == DeviceType.CUDA, ev.start_ns(),
+             ev.end_ns()) for ev in prof.profiler.kineto_results.events()]
+
+
+class _Span:
+    """A device record: its name and time range in µs."""
+
+    __slots__ = ("name", "start", "end")
+
+    def __init__(self, name, start_ns, end_ns):
+        self.name, self.start, self.end = name, start_ns / 1e3, end_ns / 1e3
+
+    @property
+    def time_range(self):
+        return self
+
+    def elapsed_us(self):
+        return self.end - self.start
+
+
+def _kernel_events(prof):
+    """The CUDA kernels a torch.profiler run saw (no memcpy / memset)."""
+    return [_Span(name, a, b) for name, on_dev, a, b in _raw_events(prof)
+            if on_dev and not name.startswith(("Memcpy", "Memset"))]
 
 
 def _one_call_profile(fn, attempts: int = 10) -> dict:
@@ -1117,44 +1174,50 @@ DT_ERR_TOL = 0.10       # px, dt_flow_err_px (the JAX package: 0.089)
 DT_ROWS = ("warp", "median", "data", "unary", "pairwise", "optimization")
 
 
-def _stage3_profile(cfg, job):
-    """One final pair under torch.profiler: CUDA kernel launches and device
-    busy time in all, and per alternation (the driver's `dt.alternate`
-    ranges on the host, each ending in a synchronize) the window, busy time
-    and idle share. The profiler also files each range as a device-side
-    annotation, which is no kernel and is left out."""
+def _stage3_profile(cfg, job, eager=False):
+    """One final pair under torch.profiler (eager, or through the CUDA
+    graphs): the host's launch calls by API, CUDA kernel launches and
+    device busy time in all, and per alternation (the driver's
+    `dt.alternate` ranges on the host, each ending in a synchronize) the
+    window, busy time and idle share. The profiler also files each range
+    as a device-side annotation, which is no kernel and is left out."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from slowflow_tpu_torch.tracking.driver import track_final_pairs_batched
 
     dev = torch.device("cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with eager_dts(eager), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        track_final_pairs_batched(cfg, [job], device=dev)
+        track_final_pairs_batched(cfg, [job], device=dev, _eager=eager)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [(ev.time_range.start, ev.time_range.end, ev.name)
-               for ev in _kernel_events(prof) if ev.name != "dt.alternate"]
+    events = _raw_events(prof)
+    kernels = [(a, b, name) for name, on_dev, a, b in events
+               if on_dev and name != "dt.alternate"
+               and not name.startswith(("Memcpy", "Memset"))]
+    calls: dict = {}
+    for name, on_dev, _, _ in events:
+        if not on_dev and name in HOST_LAUNCH_CALLS:
+            calls[name] = calls.get(name, 0) + 1
     alternations = []
-    for ev in prof.events():
-        if ev.name != "dt.alternate" or ev.device_type != DeviceType.CPU:
-            continue
-        a, b = ev.time_range.start, ev.time_range.end
+    for a, b in sorted((a, b) for name, on_dev, a, b in events
+                       if name == "dt.alternate" and not on_dev):
         busy = sum(max(0, min(e, b) - max(s, a)) for s, e, _ in kernels)
         alternations.append(dict(
-            window_ms=(b - a) / 1e3, busy_ms=busy / 1e3,
+            window_ms=(b - a) / 1e6, busy_ms=busy / 1e6,
             idle_share=1 - busy / max(b - a, 1),
             launches=sum(a <= s < b for s, _, _ in kernels)))
     by_name = {}
     for s, e, name in kernels:
         ms, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + (e - s) / 1e3, n + 1)
+        by_name[name] = (ms + (e - s) / 1e6, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
     return dict(profiled_wall_s=wall, launches=len(kernels), busy_ms=busy,
+                host_launch_calls=sum(calls.values()),
+                host_launch_calls_by_api=calls,
                 idle_share=1 - busy / (wall * 1e3), alternations=alternations,
                 top_kernels=sorted(([k[:80], ms, n] for k, (ms, n)
                                     in by_name.items()),
@@ -1222,7 +1285,9 @@ def stage3_final_pair():
 
 def stage3_batched():
     """Two final pairs of the bench scene (seeds 0 and 1) as one batch of 2
-    and as two serial calls: flows within 1e-4 px, occlusion maps equal."""
+    and as two serial calls: flows within 1e-4 px, occlusion maps equal.
+    Both are timed on replays of their CUDA graphs (phase 8 captured the
+    serial shape, an untimed batch the batched one)."""
     import torch
 
     from slowflow_tpu_torch.bench_scene import (stage3_config,
@@ -1242,7 +1307,8 @@ def stage3_batched():
             torch.cuda.max_memory_allocated()
 
     serial = [timed([job]) for job in jobs]
-    flows, occs, wall, peak = timed(jobs)
+    track_final_pairs_batched(cfg, jobs, device=dev)   # captures the F = 2
+    flows, occs, wall, peak = timed(jobs)               # graphs; replays
     diff = max(float(np.abs(f - s[0][0]).max()) for f, s in zip(flows, serial))
     same = all(np.array_equal(o, s[1][0]) for o, s in zip(occs, serial))
     RECORD["stage3_batched"] = dict(
@@ -1802,9 +1868,9 @@ def _dispatch_profile(fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     calls: dict = {}
-    for ev in prof.events():
-        if ev.name in HOST_LAUNCH_CALLS:
-            calls[ev.name] = calls.get(ev.name, 0) + 1
+    for name, on_dev, _, _ in _raw_events(prof):
+        if not on_dev and name in HOST_LAUNCH_CALLS:
+            calls[name] = calls.get(name, 0) + 1
     evs = _kernel_events(prof)
     busy = sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
     return dict(wall_ms=wall * 1e3, host_launch_calls=sum(calls.values()),
@@ -1951,6 +2017,239 @@ def graphs_dispatch():
         _graph_route(route)
 
 
+# ---------------------------------------------------------------- phase 15
+# the distance transform at the stage-2 init's shape (a group of 4 jets at
+# 270x480, seeds about every 3rd pixel each way) and stage 3's (10 jets on
+# the 135x240 grid, seeds every 2nd pixel: acc_epic_skip 2)
+DT_SHAPES = {"stage2_init": (4, 270, 480, 3), "stage3_epic": (10, 135, 240, 2)}
+DT_REPS = 5             # timed transforms per dispatch (the median is kept)
+
+
+def _dt_inputs(b, h, w, step, device, seed=0):
+    """Random costs and jittered lattice seeds, as an EPIC DT sees them."""
+    import torch
+
+    from slowflow_tpu_torch.epic.distance import BIG
+
+    rng = np.random.default_rng(seed)
+    cost = (0.02 + rng.random((b, h, w))).astype(np.float32)
+    sd = np.full((b, h, w), BIG, np.float32)
+    sl = np.full((b, h, w), -1, np.int32)
+    ys, xs = np.mgrid[step // 2:h:step, step // 2:w:step]
+    for i in range(b):
+        keep = rng.random(ys.shape) < 0.8
+        y, x = ys[keep], xs[keep]
+        sd[i, y, x] = cost[i, y, x]
+        sl[i, y, x] = np.arange(len(y), dtype=np.int32)
+    return [torch.as_tensor(a, device=device) for a in (cost, sd, sl)]
+
+
+def _dt_dispatch(name, b, h, w, step):
+    """One DT shape eager against the graphs: bitwise, walls, host launch
+    calls, device kernels, idle share, captures."""
+    import torch
+
+    from slowflow_tpu_torch.epic import distance
+    from slowflow_tpu_torch.variational import graphs
+
+    args = _dt_inputs(b, h, w, step, torch.device("cuda"))
+    graphs.clear_shared()        # the final pair's transforms left theirs
+
+    def dt(eager):
+        out = distance.distance_transform(*args, _eager=eager)
+        torch.cuda.synchronize()
+        return out
+
+    def timed(eager):
+        walls = []
+        for _ in range(DT_REPS):
+            t0 = time.perf_counter()
+            out = dt(eager)
+            walls.append(time.perf_counter() - t0)
+        return out, walls
+
+    dt(True)                                         # warm-up
+    eager, e_walls = timed(True)
+    graphs.reset_stats()
+    t0 = time.perf_counter()
+    first = dt(False)
+    first_wall = time.perf_counter() - t0
+    stats = dict(graphs.STATS)
+    replay, g_walls = timed(False)
+    e_prof = _dispatch_profile(lambda: dt(True))
+    g_prof = _dispatch_profile(lambda: dt(False))
+    bitwise = all(torch.equal(g[i], eager[i]) for g in (first, replay)
+                  for i in (0, 1))
+    e_med, g_med = float(np.median(e_walls)), float(np.median(g_walls))
+    for prof, med in ((e_prof, e_med), (g_prof, g_med)):
+        prof["idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / (
+            med * 1e3)
+    rec = dict(shape=[b, h, w], seed_step=step, bitwise=bitwise,
+               eager_wall_s=e_walls, graph_wall_s=g_walls,
+               eager_median_s=e_med, graph_median_s=g_med,
+               first_graph_run_s=first_wall, captures=stats["captures"],
+               capture_s=stats["capture_s"],
+               blocks=stats["replays"] + stats["captures"],
+               eager_profile=e_prof, graph_profile=g_prof)
+    print(f"stage3_dispatch DT {name} {b}x{h}x{w}: eager {e_med * 1e3:.2f} ms"
+          f", graphs {g_med * 1e3:.2f} ms (first run {first_wall:.3f} s, "
+          f"{stats['captures']} captures, {rec['blocks']} blocks); bitwise "
+          f"{bitwise}")
+    for side, prof in (("eager", e_prof), ("graphs", g_prof)):
+        print(f"  profiled {side}: host launch calls "
+              f"{prof['host_launch_calls']} {prof['host_launch_calls_by_api']}"
+              f", device kernels {prof['device_kernels']}, busy "
+              f"{prof['device_busy_ms']:.2f} ms, idle share "
+              f"{prof['idle_share']:.3f} (unprofiled "
+              f"{prof['idle_share_unprofiled']:.3f})")
+    check(bitwise, f"stage3_dispatch DT {name}: the graphs equal the eager "
+          "transform bitwise")
+    check(stats["captures"] == 1 and graphs.STATS["captures"] == 1,
+          f"stage3_dispatch DT {name}: one capture, replays after it")
+    return rec
+
+
+def stage3_dispatch():
+    """Phase 15: phase 8's final pair eager against the CUDA graphs, and
+    the distance transform at the stage-2 init's and stage 3's shapes."""
+    from dataclasses import replace
+
+    import torch
+
+    from slowflow_tpu_torch.bench_scene import (dt_flow_err_px, stage3_config,
+                                                stage3_final_pair as scene)
+    from slowflow_tpu_torch.tracking import driver
+    from slowflow_tpu_torch.variational import graphs
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = stage3_config()
+    job, gt = scene(seed=0, device=dev)
+
+    def call(eager):
+        """The final pair, with each solve's labels, energy and bound and
+        the readback's bank kept (copies: on the graphs they are slots)."""
+        solves, banks = [], []
+        solve, readback = driver.solve_multilabel, driver._readback
+
+        def rec_solve(*a, **k):
+            out = solve(*a, **k)
+            solves.append(tuple(t.clone() for t in out))
+            return out
+
+        def rec_readback(flows, occl, selected, *a):
+            banks.append(tuple(t.clone() for t in (flows, occl, selected)))
+            return readback(flows, occl, selected, *a)
+
+        torch.cuda.synchronize()
+        with eager_dts(eager), \
+                mock.patch.object(driver, "solve_multilabel", rec_solve), \
+                mock.patch.object(driver, "_readback", rec_readback):
+            t0 = time.perf_counter()
+            flows, occs, info = driver.track_final_pairs_batched(
+                cfg, [job], device=dev, _eager=eager)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return dict(flows=flows, occs=occs, solves=solves, banks=banks,
+                    timing=info["timing"], wall_s=wall)
+
+    # the earlier phases' graphs and cached blocks: a capture cannot hand
+    # cached memory back to the device, so free it before the first one
+    graphs.clear()
+    graphs.clear_shared()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with eager_dts():
+        driver.track_final_pairs_batched(replace(cfg, alternate=2), [job],
+                                         device=dev, _eager=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    base_reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    eager = call(True)
+    e_peak = torch.cuda.max_memory_allocated() - base
+    graphs.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    first = call(False)
+    g_peak = torch.cuda.max_memory_allocated() - base
+    kept = torch.cuda.memory_allocated() - base
+    kept_reserved = torch.cuda.memory_reserved() - base_reserved
+    stats = dict(graphs.STATS)
+    replay = call(False)
+    replay_captures = graphs.STATS["captures"] - stats["captures"]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    bitwise = {}
+    for key in ("flows", "occs"):
+        bitwise[key] = all(np.array_equal(g, e) for side in (first, replay)
+                           for g, e in zip(side[key], eager[key]))
+    for key in ("solves", "banks"):
+        bitwise[key] = all(len(side[key]) == len(eager[key]) and all(
+            same(g, e) for g, e in zip(side[key], eager[key]))
+            for side in (first, replay))
+    errs = {side: dt_flow_err_px(r["flows"][0], gt)
+            for side, r in (("eager", eager), ("graphs", replay))}
+    e_prof = _stage3_profile(cfg, job, eager=True)
+    g_prof = _stage3_profile(cfg, job, eager=False)
+    for prof, r in ((e_prof, eager), (g_prof, replay)):
+        prof["idle_share_unprofiled"] = 1 - prof["busy_ms"] / (
+            r["wall_s"] * 1e3)
+    rec = dict(
+        bitwise=bitwise, eager_wall_s=eager["wall_s"],
+        first_graph_run_s=first["wall_s"], graph_wall_s=replay["wall_s"],
+        eager_timing=eager["timing"], first_timing=first["timing"],
+        graph_timing=replay["timing"], captures=stats["captures"],
+        capture_s=stats["capture_s"], replays_first_run=stats["replays"],
+        captures_on_replay=replay_captures,
+        eager_peak_gib=e_peak / 2 ** 30, graph_peak_gib=g_peak / 2 ** 30,
+        extra_peak_gib=(g_peak - e_peak) / 2 ** 30,
+        graphs_kept_gib=kept / 2 ** 30,
+        graphs_kept_reserved_gib=kept_reserved / 2 ** 30,
+        energies=[[float(x) for x in s[1]] for s in eager["solves"]],
+        bounds=[[float(x) for x in s[2]] for s in eager["solves"]],
+        dt_flow_err_px=errs, eager_profile=e_prof, graph_profile=g_prof)
+    RECORD["stage3_dispatch"] = rec
+    print(f"stage3_dispatch final pair: eager {eager['wall_s']:.3f} s, "
+          f"graphs {replay['wall_s']:.3f} s (first run {first['wall_s']:.3f} "
+          f"s, {stats['captures']} captures in {stats['capture_s']:.3f} s, "
+          f"{replay_captures} more on the replay); peak above the inputs "
+          f"eager {rec['eager_peak_gib']:.3f} GiB, graphs "
+          f"{rec['graph_peak_gib']:.3f} GiB, kept {rec['graphs_kept_gib']:.3f}"
+          f" GiB allocated / {rec['graphs_kept_reserved_gib']:.3f} GiB "
+          f"reserved; bitwise {bitwise}; dt_flow_err_px {errs}")
+    for side, r in (("eager", eager), ("graphs", replay)):
+        print(f"  {side} rows: " + ", ".join(
+            f"{k} {r['timing'][k]:.3f} s" for k in DT_ROWS))
+    for side, prof in (("eager", e_prof), ("graphs", g_prof)):
+        print(f"  profiled {side}: wall {prof['profiled_wall_s']:.3f} s, "
+              f"host launch calls {prof['host_launch_calls']} "
+              f"{prof['host_launch_calls_by_api']}, device kernels "
+              f"{prof['launches']}, busy {prof['busy_ms']:.1f} ms, idle share"
+              f" {prof['idle_share']:.3f} (unprofiled "
+              f"{prof['idle_share_unprofiled']:.3f}); per alternation "
+              + ", ".join(f"{a['idle_share']:.3f}"
+                          for a in prof["alternations"]))
+    check(all(bitwise.values()), "stage3_dispatch: the graphs equal the "
+          f"eager final pair bitwise ({bitwise})")
+    check(replay_captures == 0, "stage3_dispatch: the second graph run "
+          "replayed without a capture")
+    check(errs["eager"] == errs["graphs"] and errs["graphs"] <= DT_ERR_TOL,
+          f"stage3_dispatch dt_flow_err_px {errs['graphs']:.4f} both ways, "
+          f"<= {DT_ERR_TOL}")
+    check(e_prof["busy_ms"] > 0 and g_prof["busy_ms"] > 0
+          and g_prof["host_launch_calls_by_api"].get("cudaGraphLaunch", 0)
+          > 0, "stage3_dispatch: the profiler saw device time both ways "
+          "and graph launches")
+    rec["dt"] = {name: _dt_dispatch(name, *shape)
+                 for name, shape in DT_SHAPES.items()}
+    graphs.clear()
+    graphs.clear_shared()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"stage3_dispatch took {rec['phase_s']:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1965,6 +2264,15 @@ def main() -> int:
         return _sharded_solve_child(Path(sys.argv[2]))
     if sys.argv[1:2] == ["--sp-solve"]:
         return _sp_solve_child(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["--stage3"]:
+        OUT_DIR.mkdir(exist_ok=True)
+        for fn in (build, stage3_dispatch):
+            phase(fn)
+        with open(OUT_DIR / "chip_smoke_stage3.json", "w") as fh:
+            json.dump(RECORD, fh, indent=1)
+        print("stage3 phase " + ("FAILED:\n  " + "\n  ".join(FAILURES)
+                                 if FAILURES else "ok"))
+        return 1 if FAILURES else 0
     if sys.argv[1:2] == ["--graphs"]:
         global GRAPHS_FULL_DEPTH
         GRAPHS_FULL_DEPTH = True
@@ -1991,7 +2299,8 @@ def main() -> int:
                slice_stack_composed, slice_unfused_pallas_warp,
                slice_profiles, cli_stage2, cli_stage2_epic, stage1,
                epicflow_cli, stage3_final_pair, stage3_batched, cli_stage3,
-               pipeline, sharded_solve, sp_solve, graphs_dispatch):
+               pipeline, sharded_solve, sp_solve, graphs_dispatch,
+               stage3_dispatch):
         phase(fn)
 
     kv = RECORD.get("kernels_vs_twins", {})

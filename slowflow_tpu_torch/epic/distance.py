@@ -10,7 +10,8 @@ its neighbours' distances and applies one eikonal quadrant update
 
 carrying the closest seed's label along, until nothing changes. The change
 is read on the host once per `check_every` iterations (the JAX version
-keeps the loop on the device). Seeds are placed on the host, where later
+keeps the loop on the device); on CUDA each block of iterations replays a
+cached CUDA graph. Seeds are placed on the host, where later
 seeds win on collisions as in the reference's loop. The seed adjacency
 graph is host numpy and its k-NN search the port's C++ Dijkstra
 (slowflow_tpu_torch.native).
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from ..native import knn_graph_all
 from ..runtime import device_of
 from ..utils.phases import phase
+from ..variational import graphs
 
 BIG = 1e18  # stands in for +inf (avoids inf - inf NaNs inside the update)
 
@@ -60,8 +62,45 @@ def _one_iter(cost, dmap, labels):
     return torch.where(upd, t0, dmap), torch.where(upd, lmin, labels)
 
 
+def dt_key(cost, seed_dist, seed_labels, check_every: int):
+    """The cache key of one distance transform's graphs: the device, the
+    inputs' shapes and dtypes and the block length."""
+    return ("dt", cost.device, tuple(cost.shape), cost.dtype,
+            seed_dist.dtype, seed_labels.dtype, int(check_every))
+
+
+class _DT(graphs.Segments):
+    """distance_transform over a state namespace `st` (cost, dmap, labels)
+    in blocks of `check_every` iterations, each a segment that reads
+    nothing on the host and ends by marking whether it changed anything,
+    which the host reads between blocks (the JAX package's `while_loop`
+    around a `fori_loop`)."""
+
+    def __init__(self, st, check_every: int, graphed: bool = False):
+        super().__init__(st, graphed)
+        self.check_every = check_every
+
+    def block(self):
+        st = self.st
+        dmap, labels = st.dmap, st.labels
+        for _ in range(self.check_every):
+            dmap, labels = _one_iter(st.cost, dmap, labels)
+        change = torch.where(dmap < st.dmap, (st.dmap - dmap).clamp_max(1e9),
+                             torch.zeros((), device=dmap.device)).max()
+        st.dmap, st.labels = dmap, labels
+        self.mark(change > 0.0)
+
+    def drive(self, run, max_iter: int):
+        it = 0
+        while it < max_iter:
+            run(("block",), self.block)
+            it += self.check_every
+            if not self.read():
+                break
+
+
 def distance_transform(cost, seed_dist, seed_labels, max_iter: int = 256,
-                       check_every: int = 8):
+                       check_every: int = 8, *, _eager: bool = False):
     """Parallel geodesic DT of [..., H, W] tensors.
 
     cost:        per-pixel traversal cost (float32)
@@ -69,19 +108,23 @@ def distance_transform(cost, seed_dist, seed_labels, max_iter: int = 256,
     seed_labels: initial labels (int32: seed index at seeds, -1 elsewhere)
 
     Iterates in blocks of `check_every` until a block changes nothing in any
-    image or `max_iter` iterations ran. Returns (dmap, labels)."""
-    dmap, labels = seed_dist, seed_labels
-    it = 0
-    while it < max_iter:
-        prev = dmap
-        for _ in range(check_every):
-            dmap, labels = _one_iter(cost, dmap, labels)
-        it += check_every
-        change = torch.where(dmap < prev, (prev - dmap).clamp_max(1e9),
-                             torch.zeros((), device=dmap.device)).max()
-        if not change.item() > 0.0:
-            break
-    return dmap, labels
+    image or `max_iter` iterations ran. Returns (dmap, labels).
+
+    On CUDA the blocks replay cached CUDA graphs (`_DT`,
+    variational/graphs.py) that every host thread shares, one thread at a
+    time, bitwise the eager transform; the CPU runs it eagerly, and so
+    does `_eager` (tests and chip_smoke.py only)."""
+    graphed = not _eager and cost.device.type == "cuda"
+    key = dt_key(cost, seed_dist, seed_labels, check_every)
+    with graphs.running(key, cost.device, graphed, shared=True) as prog:
+        st = prog.state
+        st.cost, st.dmap, st.labels = cost, seed_dist, seed_labels
+        if prog.level is None:
+            prog.level = _DT(st, check_every, prog.graphed)
+        prog.level.drive(prog.run, max_iter)
+        if not prog.graphed:
+            return st.dmap, st.labels
+        return st.dmap.clone(), st.labels.clone()
 
 
 def seed_graph(labels: np.ndarray, dmap: np.ndarray, ns: int):

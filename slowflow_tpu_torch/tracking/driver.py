@@ -5,7 +5,9 @@ Per final frame pair: load the jet estimations at one or more frame rates,
 build trajectory hypotheses (consistent accumulations + EPIC-interpolated),
 then alternate between neighbour-proposal propagation, non-maximum
 suppression, and multi-label MRF selection (TRW / BP), giving the final
-reference flow and occlusion map.
+reference flow and occlusion map. On CUDA the alternation runs as cached
+CUDA graphs of its segments (`_Alternation`), as the JAX package runs it
+as jitted programs.
 
 The hypothesis bank is a dict of fixed-capacity tensors with a leading
 final-pair axis, [F, h, w, K, ...]: F final pairs of one shape advance
@@ -30,6 +32,7 @@ from ..config import ParameterList
 from ..core.penalty import make_penalty
 from ..runtime import as_f32, resolve_device
 from ..utils.phases import phase
+from ..variational import graphs
 from .accumulate import accumulate_consistent_batches
 from .hypothesis import (
     EnergyParams, adapt_fps, hypothesis_energy, set_occlusions,
@@ -200,8 +203,10 @@ def _bank_insert(bank, flows, occl, energy, jet_est, mask):
     first_free = free.to(torch.uint8).argmax(-1)              # first True
     sel = ((torch.arange(K, device=free.device) == first_free[..., None])
            & (mask & free.any(-1))[..., None])                # [F, h, w, K]
-    jet = torch.as_tensor(jet_est, dtype=torch.int32,
-                          device=free.device).expand(mask.shape)
+    jet = jet_est.to(torch.int32).expand(mask.shape) \
+        if isinstance(jet_est, torch.Tensor) \
+        else torch.full(mask.shape, int(jet_est), dtype=torch.int32,
+                        device=free.device)
     new = dict(
         flows=torch.where(sel[..., None, None], flows[:, :, :, None],
                           bank["flows"]),
@@ -380,117 +385,226 @@ def _epic_hypotheses(acc, consistent, cfg: TrackingConfig, epic_ctx, device):
 
 
 # --------------------------------------------------------------------------
-# neighbour-proposal propagation
+# the alternation, in segments
 # --------------------------------------------------------------------------
-def _propagate(bank, cfg: TrackingConfig, draws, p_it, consistent, fields,
-               weight_jet, use_consistent):
-    """One propagation pass over both lattice strides and all tryout groups
-    with the reference's sequential insertion semantics
-    (dense_tracking.cpp:1434-1583); the JAX package's `_propagation_kernel`.
+# TrackingConfig fields that become constants of the alternation's segments
+# (with the device, F, h, w, K = capacity, J = jets, jet-occlusion
+# availability and the number of rates: `stage3_key`); the solve's own
+# (approach, trws_eps, trws_max_iter) key its graphs (`mrf.solve_key`), and
+# the rest only steer the host (the initial bank, the number of
+# alternations, the draws' seed).
+GRAPH_FIELDS = ("skip_pixel", "acc_jc", "acc_bc", "acc_gc", "acc_occ",
+                "acc_beta", "acc_spatial_occ", "acc_cv", "acc_temporal_occ",
+                "occlusion_threshold", "occlusion_fb_threshold", "neigh_hyp",
+                "neigh_hyp_radius", "hyp_neigh_tryouts", "nn_skip1",
+                "nn_skip2", "perturb_keep", "traj_sim_method",
+                "traj_sim_thres", "penalty_fct_data", "penalty_fct_data_eps")
+SOLVE_FIELDS = ("approach", "trws_eps", "trws_max_iter")
 
-    Insertion decisions depend only on source validity, the `want` budget
-    and trajectory-similarity rejection, never on the candidate's energy
-    (the reference computes the energy merely to store it,
-    dense_tracking.cpp:1544-1575); candidates come from slot 0, which
-    insertions never modify. So the insertion loop runs first with
-    placeholder energies, and one evaluation then fills the energy and
-    occlusions of every slot inserted in the pass. A final pair whose pixels
-    all adopted `want` proposals stops inserting (the reference's tryout
-    break, :1580-1582); the others go on."""
-    device = bank["energy"].device
-    nf, h, w, K, J = bank["flows"].shape[:5]
-    xy_incr = cfg.skip_pixel + 1
-    xy_start = int(0.5 * cfg.skip_pixel)
-    ntry = cfg.hyp_neigh_tryouts
-    group = max(1, min(4, ntry))
-    thres = cfg.traj_sim_thres
-    yy, xx = torch.meshgrid(torch.arange(h, device=device),
-                            torch.arange(w, device=device), indexing="ij")
-    fi = torch.arange(nf, device=device).view(nf, 1, 1, 1)
 
-    valid0 = bank["valid"]                 # pass-start snapshot
-    zero_occl = torch.zeros((nf, h, w, J + 1), dtype=torch.int32,
-                            device=device)
-    zero_energy = torch.zeros((nf, h, w), device=device)
+def stage3_key(cfg: TrackingConfig, device, nf: int, h: int, w: int,
+               has_occ: bool, n_rates: int):
+    """The cache key of one alternation shape's graphs."""
+    return ("stage3", torch.device(device), nf, h, w, cfg.capacity, cfg.jets,
+            bool(has_occ), int(n_rates)) + tuple(
+                getattr(cfg, f) for f in GRAPH_FIELDS)
 
-    for t, stride in enumerate((cfg.nn_skip1, cfg.nn_skip2)):
-        radius = (t + 1) * cfg.neigh_hyp_radius / xy_incr
+
+class _Alternation(graphs.Segments):
+    """The alternation of `track_final_pairs_batched` over inputs `ins`
+    (the energy fields, `consistent`, `weight_jet`) and a state namespace
+    `st` (the bank, the selection, a pass's draws, lattice sources and
+    insertion counts), cut into segments that read nothing on the host,
+    aligned with the JAX package's jitted programs: `sort` (sort_first /
+    sort_keep), the propagation pass (`_propagation_kernel`: per stride its
+    `sources`, per tryout group its insertions, then the `energies` of
+    what the pass inserted), `nms`, `unary` (unary_of), `pairwise`
+    (pairwise_of); `select` runs solve_multilabel (its own segments).
+
+    Propagation follows the reference's sequential insertion semantics
+    (dense_tracking.cpp:1434-1583). Insertion decisions depend only on
+    source validity, the `want` budget and trajectory-similarity
+    rejection, never on the candidate's energy (the reference computes the
+    energy merely to store it, dense_tracking.cpp:1544-1575); candidates
+    come from slot 0, which insertions never modify. So the insertion loop
+    runs first with placeholder energies, and one evaluation then fills the
+    energy and occlusions of every slot inserted in the pass. A final pair
+    whose pixels all adopted `want` proposals stops inserting (the
+    reference's tryout break, :1580-1582); the others go on: that
+    per-final test is read between tryout groups. In a graph program
+    (`graphed`) `ins` and `st` are its Slots."""
+
+    def __init__(self, cfg: TrackingConfig, ins, st, graphed=False):
+        super().__init__(st, graphed)
+        self.cfg, self.ins = cfg, ins
+        self.xy_incr = cfg.skip_pixel + 1
+        self.xy_start = int(0.5 * cfg.skip_pixel)
+        self.ntry = cfg.hyp_neigh_tryouts
+        self.group = max(1, min(4, self.ntry))
+
+    # ------------------------------------------------------------ the bank
+    def sort(self, first: bool):
+        """Ascending energies; after the first alternation the selected
+        slot first and the bank cut to 1 + perturb_keep slots."""
+        st = self.st
+        st.bank = _bank_sort(st.bank) if first else _bank_truncate(
+            _bank_sort(st.bank, keep_first=st.selected),
+            1 + self.cfg.perturb_keep)
+
+    def nms(self):
+        st = self.st
+        st.bank = _bank_nms(st.bank, self.cfg.traj_sim_method,
+                            self.cfg.traj_sim_thres)
+
+    def unary(self):
+        st = self.st
+        st.unary = torch.where(st.bank["valid"], st.bank["energy"], BIG)
+
+    def pairwise(self):
+        st, cfg = self.st, self.cfg
+        bank = st.bank
+        safe = torch.where(bank["valid"][..., None, None], bank["flows"], 0.0)
+        st.cost_r, st.cost_d = pairwise_costs(
+            safe, bank["occl"], self.ins.fields["smooth_weight"],
+            cfg.acc_beta, cfg.acc_spatial_occ, cfg.traj_sim_method,
+            self.xy_incr, self.xy_start)
+
+    def select(self):
+        """The TRW / BP solve; returns (energy, lower bound) [F]."""
+        st, cfg = self.st, self.cfg
+        selected, energy, lb = solve_multilabel(
+            st.unary, st.cost_r, st.cost_d, iters=cfg.trws_max_iter,
+            approach=cfg.approach, eps=cfg.trws_eps, _eager=not self.graphed)
+        st.selected = selected
+        return energy, lb
+
+    # -------------------------------------------------------- propagation
+    def _live(self, t: int):
+        """Per final pair: not every pixel has adopted `want` proposals."""
+        want = (t + 1) * self.cfg.neigh_hyp
+        return ~(self.st.added >= want).flatten(1).all(-1)
+
+    def sources(self, t: int, stride: int):
+        """Stride t's proposal sources from the draws st.ang / st.u: a
+        stratified offset, truncated toward zero, then floor-divided onto
+        the consistent-pixel lattice."""
+        st, cfg = self.st, self.cfg
+        nf, h, w = st.bank["energy"].shape[:3]
+        device = st.ang.device
+        if t == 0:
+            st.valid0 = st.bank["valid"]           # pass-start snapshot
+        radius = (t + 1) * cfg.neigh_hyp_radius / self.xy_incr
+        yy, xx = torch.meshgrid(torch.arange(h, device=device),
+                                torch.arange(w, device=device), indexing="ij")
+        rad = torch.sqrt(st.u) * radius
+        sx_all = (xx + rad * torch.cos(st.ang)).to(torch.int64).clamp(0, w - 1)
+        sy_all = (yy + rad * torch.sin(st.ang)).to(torch.int64).clamp(0, h - 1)
+        st.sx = (torch.div(sx_all - 1, stride, rounding_mode="floor")
+                 * stride + 1).clamp(0, w - 1)
+        st.sy = (torch.div(sy_all - 1, stride, rounding_mode="floor")
+                 * stride + 1).clamp(0, h - 1)
+        st.added = torch.zeros((nf, h, w), dtype=torch.int32, device=device)
+        self.mark(self._live(t))
+
+    def tryouts(self, t: int, g0: int, use_consistent: bool):
+        """One tryout group of stride t: sequential insertion with
+        similarity rejection; d_bank rows are refreshed per group while
+        in-group candidates check each other through d_cand."""
+        st, cfg, ins = self.st, self.cfg, self.ins
+        bank, added = st.bank, st.added
+        nf, h, w, K, J = bank["flows"].shape[:5]
+        device = added.device
         want = (t + 1) * cfg.neigh_hyp
-        ang, u = draws(p_it, t, ntry, h, w)
-        ang = torch.as_tensor(ang, dtype=torch.float32, device=device)
-        rad = torch.sqrt(torch.as_tensor(u, dtype=torch.float32,
-                                         device=device)) * radius
-        # truncation toward zero, then floor division onto the lattice
-        sx_all = (xx + rad * torch.cos(ang)).to(torch.int64).clamp(0, w - 1)
-        sy_all = (yy + rad * torch.sin(ang)).to(torch.int64).clamp(0, h - 1)
-        sx_all = (torch.div(sx_all - 1, stride, rounding_mode="floor")
-                  * stride + 1).clamp(0, w - 1)
-        sy_all = (torch.div(sy_all - 1, stride, rounding_mode="floor")
-                  * stride + 1).clamp(0, h - 1)
+        thres = cfg.traj_sim_thres
+        live = self._live(t)
+        yy, xx = torch.meshgrid(torch.arange(h, device=device),
+                                torch.arange(w, device=device), indexing="ij")
+        fi = torch.arange(nf, device=device).view(nf, 1, 1, 1)
+        zero_occl = torch.zeros((nf, h, w, J + 1), dtype=torch.int32,
+                                device=device)
+        zero_energy = torch.zeros((nf, h, w), device=device)
 
-        added = torch.zeros((nf, h, w), dtype=torch.int32, device=device)
-        for g0 in range(0, ntry, group):
-            # the reference's tryout-loop break, per final pair
-            live = ~(added >= want).flatten(1).all(-1)
-            if not bool(live.any()):
-                break
-            sxg = sx_all[g0:g0 + group]
-            syg = sy_all[g0:g0 + group]
-            n = sxg.shape[0]
-            cand_flows = bank["flows"][fi, syg[None], sxg[None], 0]
-            cand_flows = cand_flows.permute(0, 2, 3, 1, 4, 5)  # [F,h,w,n,J,2]
-            cand_jet = bank["jet_est"][fi, syg[None], sxg[None], 0] \
-                .permute(0, 2, 3, 1)
-            src_valid = bank["valid"][fi, syg[None], sxg[None], 0]
-            if use_consistent:
-                src_valid = src_valid & consistent[fi, syg[None], sxg[None]]
-            src_valid = src_valid.permute(0, 2, 3, 1)
+        sxg = st.sx[g0:g0 + self.group]
+        syg = st.sy[g0:g0 + self.group]
+        n = sxg.shape[0]
+        cand_flows = bank["flows"][fi, syg[None], sxg[None], 0]
+        cand_flows = cand_flows.permute(0, 2, 3, 1, 4, 5)  # [F,h,w,n,J,2]
+        cand_jet = bank["jet_est"][fi, syg[None], sxg[None], 0] \
+            .permute(0, 2, 3, 1)
+        src_valid = bank["valid"][fi, syg[None], sxg[None], 0]
+        if use_consistent:
+            src_valid = src_valid & ins.consistent[fi, syg[None], sxg[None]]
+        src_valid = src_valid.permute(0, 2, 3, 1)
 
-            d_bank = trajectory_distance(cand_flows[:, :, :, :, None],
-                                         bank["flows"][:, :, :, None],
-                                         cfg.traj_sim_method)  # [F,h,w,n,K]
-            d_cand = trajectory_distance(cand_flows[:, :, :, :, None],
-                                         cand_flows[:, :, :, None],
-                                         cfg.traj_sim_method)  # [F,h,w,n,n]
+        d_bank = trajectory_distance(cand_flows[:, :, :, :, None],
+                                     bank["flows"][:, :, :, None],
+                                     cfg.traj_sim_method)  # [F,h,w,n,K]
+        d_cand = trajectory_distance(cand_flows[:, :, :, :, None],
+                                     cand_flows[:, :, :, None],
+                                     cfg.traj_sim_method)  # [F,h,w,n,n]
+        inserted_prev = []
+        for i in range(n):
+            src_ok = (src_valid[..., i]
+                      & ((sxg[i] != xx) | (syg[i] != yy))
+                      & (added < want) & live.view(nf, 1, 1))
+            similar = ((d_bank[..., i, :] < thres) & bank["valid"]).any(-1)
+            for j in range(i):
+                similar = similar | (inserted_prev[j]
+                                     & (d_cand[..., i, j] < thres))
+            ins_i = src_ok & ~similar
+            bank, _ = _bank_insert(bank, cand_flows[..., i, :, :], zero_occl,
+                                   zero_energy, cand_jet[..., i], ins_i)
+            inserted_prev.append(ins_i)
+            added = added + ins_i.to(torch.int32)
+        st.bank, st.added = bank, added
+        self.mark(self._live(t))
 
-            # sequential insertion with similarity rejection; d_bank rows
-            # are refreshed per group while in-group candidates check each
-            # other through d_cand
-            inserted_prev = []
-            for i in range(n):
-                src_ok = (src_valid[..., i]
-                          & ((sxg[i] != xx) | (syg[i] != yy))
-                          & (added < want) & live.view(nf, 1, 1))
-                similar = ((d_bank[..., i, :] < thres)
-                           & bank["valid"]).any(-1)
-                for j in range(i):
-                    similar = similar | (inserted_prev[j]
-                                         & (d_cand[..., i, j] < thres))
-                ins = src_ok & ~similar
-                bank, _ = _bank_insert(bank, cand_flows[..., i, :, :],
-                                       zero_occl, zero_energy,
-                                       cand_jet[..., i], ins)
-                inserted_prev.append(ins)
-                added = added + ins.to(torch.int32)
+    def energies(self):
+        """One energy / occlusion evaluation over every slot inserted this
+        pass (flows were recorded above; energies are pure functions of
+        them), plus each slot's rate weight."""
+        st, cfg, fields = self.st, self.cfg, self.ins.fields
+        bank = st.bank
+        h, w = bank["energy"].shape[1:3]
+        device = bank["energy"].device
+        inserted = bank["valid"] & ~st.valid0                 # [F, h, w, K]
+        px, py = _grid_positions(h, w, self.xy_incr, self.xy_start, device)
+        pen = make_penalty(cfg.penalty_fct_data, cfg.penalty_fct_data_eps)
+        occl_all = set_occlusions(px, py, bank["flows"], fields["forward"],
+                                  fields["backward"], cfg.occlusion_threshold,
+                                  cfg.occlusion_fb_threshold)
+        energy_all = hypothesis_energy(
+            px, py, bank["flows"], occl_all, fields["forward"],
+            fields["data"], fields["data_dx"], fields["data_dy"], pen,
+            cfg.energy_params(), fields.get("occ_masks"))
+        weight_jet = self.ins.weight_jet
+        rates = torch.arange(weight_jet.shape[0], device=device)
+        wj = (weight_jet * (bank["jet_est"][..., None] == rates)).sum(-1)
+        st.bank = dict(
+            bank, occl=torch.where(inserted[..., None], occl_all, bank["occl"]),
+            energy=torch.where(inserted, energy_all + wj, bank["energy"]))
 
-    # one energy / occlusion evaluation over every slot inserted this pass
-    # (flows were recorded above; energies are pure functions of them)
-    inserted = bank["valid"] & ~valid0                        # [F, h, w, K]
-    px, py = _grid_positions(h, w, xy_incr, xy_start, device)
-    pen = make_penalty(cfg.penalty_fct_data, cfg.penalty_fct_data_eps)
-    occl_all = set_occlusions(px, py, bank["flows"], fields["forward"],
-                              fields["backward"], cfg.occlusion_threshold,
-                              cfg.occlusion_fb_threshold)
-    energy_all = hypothesis_energy(
-        px, py, bank["flows"], occl_all, fields["forward"], fields["data"],
-        fields["data_dx"], fields["data_dy"], pen, cfg.energy_params(),
-        fields["occ_masks"])
-    rates = torch.arange(weight_jet.shape[0], device=device)
-    wj = (weight_jet * (bank["jet_est"][..., None] == rates)).sum(-1)
-    return dict(bank,
-                occl=torch.where(inserted[..., None], occl_all, bank["occl"]),
-                energy=torch.where(inserted, energy_all + wj,
-                                   bank["energy"]))
+    def propagate(self, run, draws, p_it: int):
+        """One propagation pass over both lattice strides and all tryout
+        groups (the JAX package's `_propagation_kernel`), each segment
+        through run(segment, fn); the draws are made on the host and copied
+        into st.ang / st.u before their stride's segments."""
+        st, cfg = self.st, self.cfg
+        h, w = st.bank["energy"].shape[1:3]
+        device = st.bank["energy"].device
+        use_consistent = p_it == 0
+        for t, stride in enumerate((cfg.nn_skip1, cfg.nn_skip2)):
+            ang, u = draws(p_it, t, self.ntry, h, w)
+            st.ang = torch.as_tensor(ang, dtype=torch.float32, device=device)
+            st.u = torch.as_tensor(u, dtype=torch.float32, device=device)
+            run(("sources", t, stride), lambda: self.sources(t, stride))
+            for g0 in range(0, self.ntry, self.group):
+                # the reference's tryout-loop break, per final pair
+                if not self.read():
+                    break
+                run(("tryouts", t, g0, use_consistent),
+                    lambda: self.tryouts(t, g0, use_consistent))
+        run(("energies",), self.energies)
 
 
 # --------------------------------------------------------------------------
@@ -588,7 +702,7 @@ def track_final_pair(cfg: TrackingConfig, rate_flows, forward, backward,
 
 def track_final_pairs_batched(cfg: TrackingConfig, jobs, weight_jet=None,
                               verbose=False, init_workers=0, device=None,
-                              draws=None):
+                              draws=None, *, _eager=False):
     """Alternating optimization for F final frame pairs side by side.
 
     The reference parallelizes stage 3 by OpenMP-ing whole final pairs
@@ -602,6 +716,13 @@ def track_final_pairs_batched(cfg: TrackingConfig, jobs, weight_jet=None,
     shapes and occlusion availability. The per-final bank initialization
     (host-heavy: accumulation + EPIC interpolation) optionally overlaps on
     `init_workers` threads, each with its own CUDA stream.
+
+    On CUDA the alternation replays this thread's cached CUDA graphs of its
+    segments (`_Alternation`, variational/graphs.py; the TRW / BP solve its
+    own), the JAX package's jitted propagation and selection programs,
+    bitwise the eager alternation; the CPU runs it eagerly, and so does
+    `_eager` (tests and chip_smoke.py only). The initialization stays eager
+    (its distance transforms replay their own graphs).
 
     Returns (flows list of [h, w, 2], occ_maps list of uint8 [h, w], info).
     """
@@ -619,7 +740,6 @@ def track_final_pairs_batched(cfg: TrackingConfig, jobs, weight_jet=None,
                          "availability")
     J = cfg.jets
     xy_incr = cfg.skip_pixel + 1
-    xy_start = int(0.5 * cfg.skip_pixel)
 
     def init_one(job, threaded):
         t = {}
@@ -648,62 +768,64 @@ def track_final_pairs_batched(cfg: TrackingConfig, jobs, weight_jet=None,
     bank = {k: state.pop(k) for k in ("flows", "occl", "energy", "valid",
                                       "jet_est")}
     consistent = state.pop("consistent")
-    fields = dict(state, occ_masks=state.get("occ_masks"))
     weight_jet_t = torch.as_tensor(np.asarray(weight_jet, np.float32),
                                    device=device)
 
     h, w = bank["energy"].shape[1:3]
-    selected = None
     info = {"variables": [], "factors": [], "timing": timing}
-    for p_it in range(cfg.alternate):
-        with record_function("dt.alternate"):
-            if p_it == 0:
-                bank = _bank_sort(bank)
-            else:
-                bank = _bank_truncate(_bank_sort(bank, keep_first=selected),
-                                      1 + cfg.perturb_keep)
+    graphed = not _eager and device.type == "cuda"
+    key = stage3_key(cfg, device, F, h, w, has_occ, weight_jet_t.shape[0])
+    with graphs.running(key, device, graphed) as prog:
+        ins, st = prog.inputs, prog.state
+        ins.fields, ins.consistent, ins.weight_jet = \
+            state, consistent, weight_jet_t
+        st.bank = bank
+        del state, bank
+        if prog.level is None:
+            prog.level = _Alternation(cfg, ins, st, prog.graphed)
+        alt, run = prog.level, prog.run
+        for p_it in range(cfg.alternate):
+            with record_function("dt.alternate"):
+                if p_it == 0:
+                    run(("sort_first",), lambda: alt.sort(True))
+                else:
+                    run(("sort_keep",), lambda: alt.sort(False))
 
-            t0 = time.time()
-            bank = _propagate(bank, cfg, draws, p_it, consistent, fields,
-                              weight_jet_t, p_it == 0)
-            bank = _bank_nms(bank, cfg.traj_sim_method, cfg.traj_sim_thres)
-            _sync(device)
-            # candidate-energy evaluation = the reference's dt_sum_time row
-            # (dense_tracking.cpp:336,1571)
-            timing["data"] += time.time() - t0
+                t0 = time.time()
+                alt.propagate(run, draws, p_it)
+                run(("nms",), alt.nms)
+                _sync(device)
+                # candidate-energy evaluation = the reference's dt_sum_time
+                # row (dense_tracking.cpp:336,1571)
+                timing["data"] += time.time() - t0
 
-            t0 = time.time()
-            unary = torch.where(bank["valid"], bank["energy"], BIG)
-            _sync(device)
-            timing["unary"] += time.time() - t0
+                t0 = time.time()
+                run(("unary",), alt.unary)
+                _sync(device)
+                timing["unary"] += time.time() - t0
 
-            t0 = time.time()
-            safe = torch.where(bank["valid"][..., None, None], bank["flows"],
-                               0.0)
-            cost_r, cost_d = pairwise_costs(
-                safe, bank["occl"], fields["smooth_weight"], cfg.acc_beta,
-                cfg.acc_spatial_occ, cfg.traj_sim_method, xy_incr, xy_start)
-            _sync(device)
-            timing["pairwise"] += time.time() - t0
+                t0 = time.time()
+                run(("pairwise",), alt.pairwise)
+                _sync(device)
+                timing["pairwise"] += time.time() - t0
 
-            t0 = time.time()
-            selected, energy, lb = solve_multilabel(
-                unary, cost_r, cost_d, iters=cfg.trws_max_iter,
-                approach=cfg.approach, eps=cfg.trws_eps)
-            _sync(device)
-            timing["optimization"] += time.time() - t0
-        info["variables"].append(h * w)
-        info["factors"].append(int(2 * h * w - h - w + h * w))
-        if verbose:
-            print(f"  alternate {p_it}" + (f" (batch {F})" if F > 1 else "")
-                  + f": energy={float(energy.sum()):.1f} "
-                  f"lower_bound={float(lb.sum()):.1f} "
-                  f"hyps={int(bank['valid'].sum())}")
+                t0 = time.time()
+                energy, lb = alt.select()
+                _sync(device)
+                timing["optimization"] += time.time() - t0
+            info["variables"].append(h * w)
+            info["factors"].append(int(2 * h * w - h - w + h * w))
+            if verbose:
+                print(f"  alternate {p_it}"
+                      + (f" (batch {F})" if F > 1 else "")
+                      + f": energy={float(energy.sum()):.1f} "
+                      f"lower_bound={float(lb.sum()):.1f} "
+                      f"hyps={int(st.bank['valid'].sum())}")
 
-    final_flow, occ_any = _readback(bank["flows"], bank["occl"], selected,
-                                    J, xy_incr)
-    flows_np = final_flow.cpu().numpy().astype(np.float32)
-    occs_np = occ_any.cpu().numpy()
+        final_flow, occ_any = _readback(st.bank["flows"], st.bank["occl"],
+                                        st.selected, J, xy_incr)
+        flows_np = final_flow.cpu().numpy().astype(np.float32)
+        occs_np = occ_any.cpu().numpy()
     return ([flows_np[i] for i in range(F)],
             [occs_np[i].astype(np.uint8) * 255 for i in range(F)],
             info)

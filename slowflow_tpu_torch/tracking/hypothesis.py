@@ -255,6 +255,21 @@ def add_jc(px, py, flows, occl, forward, pen: Penalty, p: EnergyParams):
     return out if batched else out[0]
 
 
+_PAIRS: dict = {}
+
+
+def _frame_pairs(n: int, device):
+    """Index tensors (i, j) of the frame pairs i < j of n frames, made once
+    per device (indexing by a Python list copies it from the host, which a
+    CUDA graph capture refuses; shared: do not write)."""
+    key = (n, torch.device(device))
+    if key not in _PAIRS:
+        pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+        _PAIRS[key] = tuple(torch.tensor(ix, dtype=torch.int64, device=device)
+                            for ix in zip(*pairs))
+    return _PAIRS[key]
+
+
 def add_bcgc(px, py, flows, occl, data, data_dx, data_dy, p: EnergyParams,
              occ_masks=None):
     """Pairwise all-frames brightness / gradient constancy (addBCGC,
@@ -303,8 +318,7 @@ def add_bcgc(px, py, flows, occl, data, data_dx, data_dy, p: EnergyParams,
     planes = torch.cat([data, data_dx, data_dy], -1)   # [F, J+1, H, W, 9]
     fi = torch.arange(nf, device=dev).view(nf, 1, 1, 1, 1)
     ti = torch.arange(Jp1, device=dev).view(1, Jp1, 1, 1, 1)
-    pi = [i for i in range(Jp1) for j in range(i + 1, Jp1)]
-    pj = [j for i in range(Jp1) for j in range(i + 1, Jp1)]
+    pi, pj = _frame_pairs(Jp1, dev)
     bc_c = float(np.float32(p.acc_bc * 0.3334))
     gc_c = float(np.float32(p.acc_gc * 0.3334))
 

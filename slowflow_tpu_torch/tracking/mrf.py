@@ -15,11 +15,14 @@ alternative (dense_tracking.cpp:1654-1872). Here min-sum message passing is
 
 Messages are [F, H, W, K] tensors (F final pairs solved side by side; an
 unbatched problem is F = 1); one iteration is a handful of broadcast
-min-reductions over [F, H, W, K, K].
+min-reductions over [F, H, W, K, K]. On CUDA the solve runs as cached CUDA
+graphs of its segments, the JAX package's jitted solve (`_Solve`).
 """
 from __future__ import annotations
 
 import torch
+
+from ..variational import graphs
 
 BIG = 1e9
 
@@ -34,45 +37,50 @@ def _shift(x, dy, dx, fill=0.0):
     return out
 
 
-def solve_multilabel(unary, cost_r, cost_d, iters: int = 10,
-                     approach: int = 0, damping: float = 0.5,
-                     eps: float = 1e-5):
-    """Minimize sum_p unary[p, l_p] + sum_{pq} C_pq[l_p, l_q].
+def solve_key(device, shape, iters: int, approach: int, damping: float,
+              eps: float):
+    """The cache key of one solve's graphs: the device, [F, H, W, K] and
+    every argument that becomes a constant of a segment."""
+    return ("mrf", torch.device(device), tuple(shape), int(iters),
+            int(approach), float(damping), float(eps))
 
-    unary:  [H, W, K] (+BIG for invalid labels)
-    cost_r: [H, W, K, K] pairwise to the right neighbour (K_p x K_q)
-    cost_d: [H, W, K, K] pairwise to the down neighbour
-    (each with a leading final-pair axis F for F problems at once; each
-    stops on its own test, as if solved alone).
-    Returns (labels [H, W] int32, energy, lower_bound), energy and bound
-    0-dim tensors (or [F]).
-    """
-    batched = unary.dim() == 4
-    if not batched:
-        unary, cost_r, cost_d = unary[None], cost_r[None], cost_d[None]
-    nf, h, w, K = unary.shape
-    rho = 0.5 if approach == 0 else 1.0
 
-    cost_l = _shift(cost_r, 0, -1).transpose(-1, -2)
-    cost_u = _shift(cost_d, -1, 0).transpose(-1, -2)
+class _Solve(graphs.Segments):
+    """solve_multilabel over a state namespace `st` (inputs unary, cost_r,
+    cost_d [F, ...]; the messages, the running bound `best`, `progress`),
+    cut into segments that read nothing on the host: the start, one TRW
+    iteration, the BP branch's fixed iterations, the labelling and its
+    energy. The TRW stop test is read between iterations (the JAX
+    package's `lax.while_loop`)."""
 
-    def beliefs(msgs):
+    def __init__(self, st, iters: int, approach: int, damping: float,
+                 eps: float, graphed: bool = False):
+        super().__init__(st, graphed)
+        self.iters, self.approach = iters, approach
+        self.damping, self.eps = damping, eps
+        self.rho = 0.5 if approach == 0 else 1.0
+
+    # ---------------------------------------------------------- the steps
+    def beliefs(self, msgs):
         m_from_l, m_from_r, m_from_u, m_from_d = msgs
-        return unary + rho * (m_from_l + m_from_r + m_from_u + m_from_d)
+        return self.st.unary + self.rho * (m_from_l + m_from_r + m_from_u
+                                           + m_from_d)
 
+    @staticmethod
     def send(b_minus, cost):
         # min over sender labels k1 of (b_minus[k1] + cost[k1, k2])
         m = (b_minus[..., :, None] + cost).amin(-2)
         return m - m.amin(-1, keepdim=True)
 
-    def iteration(msgs):
+    def iteration(self, msgs):
+        st, rho, damping = self.st, self.rho, self.damping
         m_from_l, m_from_r, m_from_u, m_from_d = msgs
-        b = beliefs(msgs)
+        b = self.beliefs(msgs)
         # message p -> right neighbour: exclude what q sent us
-        new_to_r = send(b - rho * m_from_r, cost_r)
-        new_to_l = send(b - rho * m_from_l, cost_l)
-        new_to_d = send(b - rho * m_from_d, cost_d)
-        new_to_u = send(b - rho * m_from_u, cost_u)
+        new_to_r = self.send(b - rho * m_from_r, st.cost_r)
+        new_to_l = self.send(b - rho * m_from_l, st.cost_l)
+        new_to_d = self.send(b - rho * m_from_d, st.cost_d)
+        new_to_u = self.send(b - rho * m_from_u, st.cost_u)
 
         def mix(old, new):
             return damping * old + (1 - damping) * new
@@ -82,17 +90,19 @@ def solve_multilabel(unary, cost_r, cost_d, iters: int = 10,
                 mix(m_from_u, _shift(new_to_d, -1, 0)),
                 mix(m_from_d, _shift(new_to_u, 1, 0)))
 
-    def bound(msgs):
+    def bound(self, msgs):
         """Chain-decomposition dual (the monotone TRW-S bound contract,
         dense_tracking.cpp:1816-1831 / Kolmogorov PAMI 2006 eq. 13): every
         node term split equally between its row chain and its column chain,
         each chain solved exactly by min-sum DP (a sequential loop over the
         columns, then over the rows), the minima summed. Returns [F]."""
+        st, rho = self.st, self.rho
+        h, w = st.unary.shape[1:3]
         m_l, m_r, m_u, m_d = msgs
-        th = 0.5 * (unary + rho * (m_l + m_r + m_u + m_d))
-        e_r = (cost_r[:, :, :-1]
+        th = 0.5 * (st.unary + rho * (m_l + m_r + m_u + m_d))
+        e_r = (st.cost_r[:, :, :-1]
                - rho * (m_l[:, :, 1:, None, :] + m_r[:, :, :-1, :, None]))
-        e_d = (cost_d[:, :-1]
+        e_d = (st.cost_d[:, :-1]
                - rho * (m_u[:, 1:, :, None, :] + m_d[:, :-1, :, :, None]))
         acc_r = th[:, :, 0]
         for x in range(w - 1):
@@ -103,55 +113,122 @@ def solve_multilabel(unary, cost_r, cost_d, iters: int = 10,
             acc_d = (acc_d[..., :, None] + e_d[:, y]).amin(-2) + th[:, y + 1]
         return acc_r.amin(-1).sum(-1) + acc_d.amin(-1).sum(-1)
 
-    zero = torch.zeros_like(unary)
-    msgs = (zero, zero, zero, zero)
-    if approach == 0:
-        # TRW-S stopping semantics (dense_tracking.cpp:660-661 feeding
-        # MRFEnergy options): iterate until the lower-bound improvement per
-        # iteration falls below acc_trws_eps, capped at acc_trws_max_iter;
-        # gated on the larger of the bound improvement and the message
-        # residual, since the synchronous dual can plateau an iteration or
-        # two before the damped messages stop moving. The reported bound is
-        # the running max of the dual. One host read of the stop test per
-        # iteration; a problem that has stopped keeps its state.
-        best = bound(msgs)
-        progress = torch.full((nf,), float("inf"), device=unary.device)
-        for _ in range(iters):
-            live = progress >= eps
-            if not bool(live.any()):
-                break
-            new = iteration(msgs)
-            lb = bound(new)
-            res = torch.stack([(n - o).abs().amax((1, 2, 3))
-                               for n, o in zip(new, msgs)]).amax(0)
-            keep = live.view(nf, 1, 1, 1)
-            msgs = tuple(torch.where(keep, n, o) for n, o in zip(new, msgs))
-            progress = torch.where(live, torch.maximum(lb - best, res),
-                                   progress)
-            best = torch.where(live, torch.maximum(best, lb), best)
-    else:
-        # the reference's Minimize_BP runs to m_iterMax regardless of eps
-        for _ in range(iters):
-            msgs = iteration(msgs)
-        best = bound(msgs)
+    # ----------------------------------------------------------- segments
+    def start(self):
+        """The left / up costs, zero messages and (TRW) the first bound."""
+        st = self.st
+        st.cost_l = _shift(st.cost_r, 0, -1).transpose(-1, -2)
+        st.cost_u = _shift(st.cost_d, -1, 0).transpose(-1, -2)
+        zero = torch.zeros_like(st.unary)
+        st.msgs = (zero, zero, zero, zero)
+        if self.approach == 0:
+            st.best = self.bound(st.msgs)
+            st.progress = torch.full((st.unary.shape[0],), float("inf"),
+                                     device=st.unary.device)
+            self.mark(st.progress >= self.eps)
 
-    labels = beliefs(msgs).argmin(-1).to(torch.int32)
+    def trw(self):
+        """One TRW iteration of the problems still live; a problem that
+        has stopped keeps its state."""
+        st = self.st
+        nf = st.unary.shape[0]
+        live = st.progress >= self.eps
+        new = self.iteration(st.msgs)
+        lb = self.bound(new)
+        res = torch.stack([(n - o).abs().amax((1, 2, 3))
+                           for n, o in zip(new, st.msgs)]).amax(0)
+        keep = live.view(nf, 1, 1, 1)
+        st.msgs = tuple(torch.where(keep, n, o) for n, o in zip(new, st.msgs))
+        st.progress = torch.where(live, torch.maximum(lb - st.best, res),
+                                  st.progress)
+        st.best = torch.where(live, torch.maximum(st.best, lb), st.best)
+        self.mark(st.progress >= self.eps)
 
-    # energy of the final labeling
-    lab = labels.long()[..., None]
-    e_unary = torch.take_along_dim(unary, lab, -1)[..., 0].sum((1, 2))
-    lab_r = _shift(lab, 0, 1)
-    lab_d = _shift(lab, 1, 0)
-    e_r = torch.take_along_dim(
-        torch.take_along_dim(cost_r, lab[..., None], -2)[..., 0, :],
-        lab_r, -1)[..., 0]
-    e_d = torch.take_along_dim(
-        torch.take_along_dim(cost_d, lab[..., None], -2)[..., 0, :],
-        lab_d, -1)[..., 0]
-    energy = e_unary + e_r[:, :, :-1].sum((1, 2)) + e_d[:, :-1].sum((1, 2))
+    def bp(self):
+        """The reference's Minimize_BP runs to m_iterMax regardless of
+        eps."""
+        st = self.st
+        msgs = st.msgs
+        for _ in range(self.iters):
+            msgs = self.iteration(msgs)
+        st.msgs = msgs
+        st.best = self.bound(msgs)
+
+    def tail(self):
+        """The labelling and its energy."""
+        st = self.st
+        labels = self.beliefs(st.msgs).argmin(-1).to(torch.int32)
+        lab = labels.long()[..., None]
+        e_unary = torch.take_along_dim(st.unary, lab, -1)[..., 0].sum((1, 2))
+        lab_r = _shift(lab, 0, 1)
+        lab_d = _shift(lab, 1, 0)
+        e_r = torch.take_along_dim(
+            torch.take_along_dim(st.cost_r, lab[..., None], -2)[..., 0, :],
+            lab_r, -1)[..., 0]
+        e_d = torch.take_along_dim(
+            torch.take_along_dim(st.cost_d, lab[..., None], -2)[..., 0, :],
+            lab_d, -1)[..., 0]
+        st.labels = labels
+        st.energy = (e_unary + e_r[:, :, :-1].sum((1, 2))
+                     + e_d[:, :-1].sum((1, 2)))
+
+    def drive(self, run):
+        """The solve's host loop: each segment through run(segment, fn),
+        the stop test read between TRW iterations."""
+        run(("start",), self.start)
+        if self.approach == 0:
+            # TRW-S stopping semantics (dense_tracking.cpp:660-661 feeding
+            # MRFEnergy options): iterate until the lower-bound improvement
+            # per iteration falls below acc_trws_eps, capped at
+            # acc_trws_max_iter; gated on the larger of the bound
+            # improvement and the message residual, since the synchronous
+            # dual can plateau an iteration or two before the damped
+            # messages stop moving. The reported bound is the running max
+            # of the dual. One host read of the stop test per iteration.
+            for _ in range(self.iters):
+                if not self.read():
+                    break
+                run(("trw",), self.trw)
+        else:
+            run(("bp",), self.bp)
+        run(("tail",), self.tail)
+
+
+def solve_multilabel(unary, cost_r, cost_d, iters: int = 10,
+                     approach: int = 0, damping: float = 0.5,
+                     eps: float = 1e-5, *, _eager: bool = False):
+    """Minimize sum_p unary[p, l_p] + sum_{pq} C_pq[l_p, l_q].
+
+    unary:  [H, W, K] (+BIG for invalid labels)
+    cost_r: [H, W, K, K] pairwise to the right neighbour (K_p x K_q)
+    cost_d: [H, W, K, K] pairwise to the down neighbour
+    (each with a leading final-pair axis F for F problems at once; each
+    stops on its own test, as if solved alone).
+    Returns (labels [H, W] int32, energy, lower_bound), energy and bound
+    0-dim tensors (or [F]).
+
+    On CUDA the solve replays this thread's cached CUDA graphs of its
+    segments (`_Solve`, variational/graphs.py), bitwise the eager solve;
+    the CPU runs it eagerly, and so does `_eager` (tests and
+    chip_smoke.py only)."""
+    batched = unary.dim() == 4
     if not batched:
-        return labels[0], energy[0], best[0]
-    return labels, energy, best           # chain-decomposition dual
+        unary, cost_r, cost_d = unary[None], cost_r[None], cost_d[None]
+    graphed = not _eager and unary.device.type == "cuda"
+    key = solve_key(unary.device, unary.shape, iters, approach, damping, eps)
+    with graphs.running(key, unary.device, graphed) as prog:
+        st = prog.state
+        st.unary, st.cost_r, st.cost_d = unary, cost_r, cost_d
+        if prog.level is None:
+            prog.level = _Solve(st, iters, approach, damping, eps,
+                                prog.graphed)
+        prog.level.drive(prog.run)
+        out = (st.labels, st.energy, st.best)
+        if prog.graphed:
+            out = tuple(x.clone() for x in out)
+    if not batched:
+        return tuple(x[0] for x in out)
+    return out                            # chain-decomposition dual
 
 
 def pairwise_costs(flows, occl, smooth_weight, beta, spatial_occ, method,

@@ -1,40 +1,54 @@
-"""CUDA graphs of the jet solve's pyramid levels: the port's counterpart of
-the JAX package's compiled dispatch (its `jax.jit` of the pyramid).
+"""CUDA graphs of the port's compiled programs: its counterpart of the JAX
+package's compiled dispatch (its `jax.jit` of the pyramid, of stage 3's
+propagation, selection and solve, and of the EPIC distance transform).
 
-`multiframe.compute_one_level` cuts a level into segments that read nothing
-on the host (the start, the alternation top, one outer iteration, one inner
-iteration, the outer tail, the alternation end). On CUDA each segment of a
-level shape is captured once into a `torch.cuda.CUDAGraph` and then
+A caller cuts its work into segments that read nothing on the host (the
+jet solve's level in `multiframe._Level`; stage 3's alternation in
+`tracking.driver._Alternation`, its TRW / BP solve in `tracking.mrf._Solve`;
+the distance transform's blocks in `epic.distance._DT`). On CUDA each
+segment of a shape is captured once into a `torch.cuda.CUDAGraph` and then
 replayed; the host reads the loop-exit flag that the segment wrote between
-replays, where the eager level reads `live.any()`, so every exit falls
-where it falls eagerly and the result is bitwise the eager one.
+replays, where the eager code reads `live.any()`, so every exit falls where
+it falls eagerly and the result is bitwise the eager one.
 
-A `Program` holds one level shape's graphs over fixed memory: its inputs
-and its state live in `Slots`, whose tensors keep their addresses, and a
-segment ends by copying what it changed into them. The first time a
+A `Program` holds one shape's graphs over fixed memory: its inputs and its
+state live in `Slots`, whose tensors keep their addresses, and a segment
+ends by copying what it changed into them. All graphs of a Program share
+one memory pool: they replay one at a time on one stream and keep nothing
+of their own between replays (what lasts is in the Slots), so one
+segment's temporaries may take another's addresses. The first time a
 segment runs it runs eagerly on a side stream (this step's work; nvcc
-builds, library loads, plan caches and per-device limits all happen here,
-outside any capture), then it is captured with capture_error_mode
-"thread_local", since other host threads (the stage-2 CLI's EPIC
-prefetch, the shards of `parallel.mesh.run_sharded`) launch meanwhile.
-Kernel wrappers count their launches into the graph's record at capture
-(`kernels.recording`); each replay adds the record to `kernels.LAUNCHES`.
+builds, library loads, plan caches, per-device memos and per-device limits
+all happen here, outside any capture), then it is captured with
+capture_error_mode "thread_local", since other host threads (the stage-2
+CLI's EPIC prefetch, stage 3's init workers and prefetch, the shards of
+`parallel.mesh.run_sharded`) launch meanwhile. Kernel wrappers count their
+launches into the graph's record at capture (`kernels.recording`); each
+replay adds the record to `kernels.LAUNCHES`.
 
-Programs are cached per host thread, keyed by `level_key`, at most
-MAX_PROGRAMS per thread (least recently used dropped first). A failed
-capture or replay raises; nothing falls back to the eager level.
+Programs are cached per host thread (`program`, `running`), keyed by the
+caller (`level_key` for the jet solve), at most MAX_PROGRAMS per thread
+(least recently used dropped first). Work that runs on pool threads made
+anew for each call (the distance transform) takes Programs that every
+thread shares (`running(..., shared=True)`): one is lent to one thread at
+a time, and the next borrower's stream waits for the last one's work. A
+failed capture or replay raises; nothing falls back to the eager code.
+`Eager` stands in for a Program on the eager path (the CPU, and the eager
+switches that tests and chip_smoke.py use).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
+from types import SimpleNamespace
 
 import torch
 
 from .. import kernels
 
-MAX_PROGRAMS = 16   # level shapes kept per host thread
+MAX_PROGRAMS = 16   # shapes kept per host thread, and shared ones in all
 
 _local = threading.local()
 _stats_lock = threading.Lock()
@@ -98,9 +112,51 @@ class Slots:
             slots[name] = _clone(value)
 
 
+class Segments:
+    """The host reads of a computation cut into segments over a state
+    namespace `st`: a segment ends by marking the per-item `live` flags
+    that the next read tests. Eagerly they are kept and read as
+    `live.any()`; in a graph program (`graphed`, `st` its Slots) the
+    segment writes `st.flag` = live.any() and the host reads it between
+    replays."""
+
+    def __init__(self, st, graphed: bool):
+        self.st, self.graphed = st, graphed
+        self.marked = None
+
+    def mark(self, live):
+        if self.graphed:
+            self.st.flag = live.any()
+        else:
+            self.marked = live
+
+    def read(self) -> bool:
+        return bool(self.st.flag) if self.graphed \
+            else bool(self.marked.any())
+
+
+class Eager:
+    """The eager stand-in for a Program: plain namespaces, each segment
+    called as it comes."""
+
+    graphed = False
+
+    def __init__(self):
+        self.inputs = SimpleNamespace()
+        self.state = SimpleNamespace()
+        self.level = None
+
+    @staticmethod
+    def run(segment, fn) -> None:
+        fn()
+
+
 class Program:
-    """One level shape's graphs: `inputs` and `state` are its Slots, `run`
-    replays a segment's graph, capturing it on the segment's first run."""
+    """One shape's graphs: `inputs` and `state` are its Slots, `run`
+    replays a segment's graph, capturing it on the segment's first run;
+    every graph is captured into the Program's one memory pool."""
+
+    graphed = True
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -108,6 +164,8 @@ class Program:
         self.state = Slots()
         self.graphs: dict = {}
         self.level = None     # the segments' owner, set by the caller
+        self.pool = torch.cuda.graph_pool_handle()
+        self.released = None  # a shared Program: its last borrower's work
         self._side = torch.cuda.Stream(self.device)
 
     def run(self, segment, fn) -> None:
@@ -127,7 +185,8 @@ class Program:
         with torch.cuda.stream(self._side):
             fn()
             with kernels.recording() as counts:
-                graph.capture_begin(capture_error_mode="thread_local")
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
                 try:
                     fn()
                 except BaseException:
@@ -188,3 +247,77 @@ def clear() -> None:
 
 def cached_keys() -> list:
     return list(_cache())
+
+
+_shared: collections.OrderedDict = collections.OrderedDict()  # key -> idle
+_shared_lock = threading.Lock()
+
+
+def _take_shared(key):
+    with _shared_lock:
+        idle = _shared.get(key)
+        return idle.pop() if idle else None
+
+
+def _give_back(key, prog: Program) -> None:
+    """Return a borrowed Program; beyond MAX_PROGRAMS idle ones, drop the
+    least recently returned."""
+    with _shared_lock:
+        _shared.setdefault(key, []).append(prog)
+        _shared.move_to_end(key)
+        dropped = []
+        while sum(map(len, _shared.values())) > MAX_PROGRAMS:
+            oldest, idle = next(iter(_shared.items()))
+            dropped.append(idle.pop(0))
+            if not idle:
+                del _shared[oldest]
+    for old in dropped:
+        old.close()
+
+
+def clear_shared() -> None:
+    """Drop every idle shared Program."""
+    with _shared_lock:
+        idle = [p for progs in _shared.values() for p in progs]
+        _shared.clear()
+    for prog in idle:
+        prog.close()
+
+
+def shared_keys() -> list:
+    with _shared_lock:
+        return [k for k, progs in _shared.items() for _ in progs]
+
+
+@contextlib.contextmanager
+def running(key, device, graphed: bool, shared: bool = False):
+    """The Program that a caller drives for `key`: `Eager()` unless
+    `graphed`; else this thread's cached Program, or with `shared` one
+    lent from the cache every thread shares (made if none is idle; the
+    current stream first waits for its last borrower's work). A Program
+    whose run raised is dropped: its state is unknown."""
+    if not graphed:
+        yield Eager()
+        return
+    device = torch.device(device)
+    if not shared:
+        prog = program(key, lambda: Program(device))
+        try:
+            yield prog
+        except BaseException:
+            discard(key)
+            raise
+        return
+    prog = _take_shared(key)
+    if prog is None:
+        prog = Program(device)
+    elif prog.released is not None:
+        torch.cuda.current_stream(device).wait_event(prog.released)
+    try:
+        yield prog
+    except BaseException:
+        prog.close()
+        raise
+    prog.released = torch.cuda.Event()
+    prog.released.record(torch.cuda.current_stream(device))
+    _give_back(key, prog)

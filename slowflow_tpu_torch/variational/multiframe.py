@@ -131,7 +131,7 @@ def _level_state(route, seq, channel_w, p: MultiFrameParams, rows=None):
     return derive, occ_costs, data_terms
 
 
-class _Level:
+class _Level(graphs.Segments):
     """One pyramid level's alternating solve (`compute_one_level`) over a
     state namespace `st`, cut into segments that read nothing on the host,
     and the host loop that runs them and reads the exit flags between them
@@ -150,8 +150,8 @@ class _Level:
 
     def __init__(self, seq, channel_w, norm_avg, norm_std,
                  p: MultiFrameParams, strips=None, st=None):
-        self.graphed = st is not None
-        self.st = SimpleNamespace() if st is None else st
+        super().__init__(SimpleNamespace() if st is None else st,
+                         st is not None)
         self.p = p
         self.route = p.route()
         self.seq, self.channel_w = seq, channel_w
@@ -165,7 +165,6 @@ class _Level:
         self.dn = data_norm(p)
         self.occ_step = p.occlusion_reasoning and not p.one_direction
         self.fuse_occ = first_system(p)
-        self.marked = None
         self._bind()
 
     def _bind(self):
@@ -190,20 +189,11 @@ class _Level:
             else st.state
 
     # ------------------------------------------------------ host reads
-    def mark(self, live):
-        """`live` is what the next host read tests."""
-        if self.graphed:
-            self.st.flag = live.any()
-        else:
-            self.marked = live
-
     def read(self) -> bool:
         """Whether any jet of the last marked flag is live (over a jet's
         strips with `strips`)."""
-        if self.graphed:
-            return bool(self.st.flag)
-        if self.strips is None:
-            return bool(self.marked.any())
+        if self.graphed or self.strips is None:
+            return super().read()
         return self.strips.any(self.marked)
 
     # ---------------------------------------------------------- helpers
@@ -429,8 +419,7 @@ def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
         return level.st.wx, level.st.wy, level.st.occ
     b, _, _, h, w = seq.shape
     key = graphs.level_key(seq.device, p, b, h, w, first_system(p))
-    try:
-        prog = graphs.program(key, lambda: graphs.Program(seq.device))
+    with graphs.running(key, seq.device, graphed=True) as prog:
         ins = prog.inputs
         ins.seq, ins.channel_w = seq, channel_w
         ins.norm_avg, ins.norm_std = norm_avg, norm_std
@@ -441,9 +430,6 @@ def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
         st.wx, st.wy = wx, wy
         prog.level.drive(prog.run)
         return st.wx.clone(), st.wy.clone(), st.occ.clone()
-    except BaseException:
-        graphs.discard(key)
-        raise
 
 
 def _mt_pipeline(wx, wy, seq, channel_w, norm_avg, norm_std,
