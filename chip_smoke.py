@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port on one GPU: its kernels, the stage-2 jet
 solve, the EPIC init, every CLI, stage 3, the three-stage pipeline, the
-jet split over two shards, the row split of one level over strips, and
-the CUDA graphs of the level, of stage 3 and of the distance transform
-against their eager dispatch.
+jet split over two shards, the row split of one level over strips, the
+CUDA graphs of the level, of stage 3, of the distance transform and of the
+two-frame solve against their eager dispatch, and graph memory in a
+long-lived process.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --graphs     # phases 1 and 14 alone
     python3 chip_smoke.py --stage3     # phases 1 and 15 alone
+    python3 chip_smoke.py --match      # phases 1, 2's matcher, 16 and 17
 
 On CUDA the jet solve's levels replay cached CUDA graphs
 (slowflow_tpu_torch/variational/graphs.py), so phases 3, 5, 11 and 12 run
@@ -37,6 +39,14 @@ Phases (any failure makes the script exit non-zero without the final line):
      shape), and each wrapper's CUDA launches and device time in one call
      under torch.profiler; K1 / K5's band plans and K2 / K3 / K4's
      registers, spills and resident blocks per SM (K2 and K3 need 2);
+     then the EPIC grid matcher's kernel (csrc/grid_match.cu, the JAX
+     package's jitted _grid_match_core) against its twin at phase 5's
+     4x270x480 radius 50, stage 1's 40x270x480 radius 32, 2x135x240 radius
+     80 and a scene of flat grey blocks (radius 16): labels of both
+     directions equal except where the two displacements' costs (float64,
+     on the card) tie within 1e-5 relative, kept matches equal on the
+     textured scenes, time, device time, launches, bound, band plan,
+     registers and blocks per SM;
   3. the slice: variational_mt_batched at the bench configuration (bench
      scene of slowflow_tpu_torch/bench_scene.py, 5 levels, 10 alternations x 10 outer x 30 SOR sweeps, occlusion
      reasoning, batch 4) on the merged route and on the stack route with the
@@ -54,17 +64,20 @@ Phases (any failure makes the script exit non-zero without the final line):
   5. cli_stage2_epic: the stage-2 CLI with deep_matching 1 (EPIC init, no
      quantil.dat, so matcher radius 50) at the bench configuration on the
      bench scene written as 8-bit PNGs at 270x480, Jets 4, S = 3, -batch 4,
-     in this process with the phase timers on: K1 and K2 launched,
-     flow_recovery_err_px of jet 0's forward .flo (per frame) <= 0.01, the
-     init's own recovery error, matches kept, the per-phase seconds and the
-     wall per batch; then the same CLI with deep_matching 0 for the wall
-     per batch without the init;
+     in this process with the phase timers on: K1, K2 and the matcher
+     launched, flow_recovery_err_px of jet 0's forward .flo (per frame) <=
+     0.01, the init's own recovery error, matches kept, the per-phase
+     seconds, the matcher's share of the init and the wall per batch; then
+     the same CLI with deep_matching 0 for the wall per batch without the
+     init;
   6. stage1: the stage-1 CLI over 40 samples of 42 frames of the same scene
-     at 270x480 (-scale 1.0 -skip 2 -samples 40 -step 1): K5 launched,
-     quantil.dat's first value within 10 % of |(1.5, -0.8)| = 1.70 px/frame,
-     the batched two-frame solve's time and K5's plan at B = 40;
+     at 270x480 (-scale 1.0 -skip 2 -samples 40 -step 1): K5 and the
+     matcher launched, quantil.dat's first value within 10 % of |(1.5,
+     -0.8)| = 1.70 px/frame, the batched two-frame solve's time, its graph
+     captures and replays, and K5's plan at B = 40;
   7. epicflow_cli: the standalone EpicFlow CLI on one 270x480 pair with
-     auto edges and matches and -sintel: exit 0 and the flow recovered;
+     auto edges and matches and -sintel: exit 0, the flow recovered, the
+     matcher's two launches and the two-frame solve as a CUDA graph;
   8. stage3_final_pair: stage 3 (dense tracking, torch ops, no hand
      kernel) on the bench final pair of slowflow_tpu_torch/bench_scene.py
      (270x480, Jets 10, capacity 16, 5 alternations, 20 tryouts, EPIC
@@ -141,8 +154,22 @@ Phases (any failure makes the script exit non-zero without the final line):
      transform at the stage-2 init's shape (4 x 270 x 480) and stage 3's
      (10 x 135 x 240), eager against its graph: bitwise, walls, launch
      calls, device kernels, idle share, one capture.
-Prints a JSON line with one entry per kernel (K3's also with its other
-modes' times at the bench shape), then
+ 16. twoframe_dispatch: variational_twoframe_batched (sintel preset) at
+     stage 1's 40 x 270 x 480 (K5's streaming path) and the epicflow CLI's
+     1 x 270 x 480, eager against its CUDA graph: wx, wy bitwise on the
+     capturing and the replaying call, one capture and none on the second
+     call, K5's launches equal, walls, host launch calls by API, device
+     kernels, busy time and idle share, peak memory eager and with the
+     graph.
+ 17. graph_memory: one host thread through more than graphs.MAX_PROGRAMS
+     distinct shapes (two stage-3 final pairs, jet-solve levels, two-frame
+     solves): reserved memory after the sweep within the reserve at the
+     16th Program plus the largest step's growth; then the bench level
+     (4 x 270 x 480, 10 x 10 x 30) captured with no empty_cache by the
+     caller, and a first capture (B = 2) with the device's memory held in
+     the allocator's cache; both bitwise the eager level.
+Prints a JSON line with one entry per kernel (K1-K6 and the matcher; K3's
+also with its other modes' times at the bench shape), then
 {"ok": true, "device": {...}} as the last line. A detailed record goes to
 chiprun_out/chip_smoke.json.
 
@@ -258,6 +285,27 @@ def eager_dts(on: bool = True):
     with mock.patch.object(distance, "distance_transform", functools.partial(
             distance.distance_transform, _eager=True)):
         yield
+
+
+@contextlib.contextmanager
+def twoframe_graph_counts():
+    """While open, the two-frame solve's calls and the captures and replays
+    of its CUDA graphs (graphs.STATS also counts the distance transform's)."""
+    from slowflow_tpu_torch.variational import graphs, twoframe
+
+    counts = {"calls": 0, "captures": 0, "replays": 0}
+    inner = twoframe._refine_program
+
+    def counted(prog, *args):
+        before = dict(graphs.STATS)
+        out = inner(prog, *args)
+        counts["calls"] += 1
+        for k in ("captures", "replays"):
+            counts[k] += graphs.STATS[k] - before[k]
+        return out
+
+    with mock.patch.object(twoframe, "_refine_program", counted):
+        yield counts
 
 
 def check(cond: bool, what: str) -> None:
@@ -714,6 +762,228 @@ def route_kernels_vs_twins():
                  f"{b}x{h}x{w}", work=_work_sor(b, h, w, p.niter_solver))
 
 
+# ------------------------------------------------------ phase 2: matcher
+MATCH_PATCH_R = 4       # the CLIs' patch radius
+MATCH_TIE_REL = 1e-5    # labels may differ only where two costs tie
+# name: (pairs, H, W, radius, textured)
+MATCH_SHAPES = {"stage2": (4, 270, 480, 50, True),    # phase 5's init
+                "stage1": (40, 270, 480, 32, True),   # phase 6's samples
+                "r80": (2, 135, 240, 80, True),       # a radius above 64
+                "flat": (4, 270, 480, 16, False)}     # flat patches: ties
+TAP_OPS = 3             # a tap: subtract, absolute value, add
+
+
+def _work_match(points, h, w, radius, patch_r, b):
+    """Both directions of the matcher: per direction each image read once,
+    the points read and the labels written; TAP_OPS per patch tap inside
+    the image, (2r+1)^2 displacements a point. `points`: the (ys, xs)
+    [B, P] of each direction."""
+    nbytes, flops = 0.0, 0.0
+    for ys, xs in points:
+        taps = 1
+        for v, n in ((ys, h), (xs, w)):
+            lo = (v - patch_r).clamp_min(0)
+            hi = (v + patch_r).clamp_max(n - 1)
+            taps = taps * (hi - lo + 1)
+        flops += TAP_OPS * (2 * radius + 1) ** 2 * float(taps.sum())
+        nbytes += 2 * 4 * b * h * w + 3 * 8 * ys.numel()
+    return bound(nbytes, flops)
+
+
+def _costs64(g1, g2, ys, xs, k, radius, patch_r):
+    """float64 cost of the displacement k [B, P] at the points: the
+    matcher's cost (epic/matching.py), evaluated on the card."""
+    import torch
+
+    d = 2 * radius + 1
+    dy, dx = k // d - radius, k % d - radius
+    g1, g2 = g1.double(), g2.double()
+    b, h, w = g1.shape
+    bi = torch.arange(b, device=g1.device)[:, None]
+    cost = torch.zeros(ys.shape, dtype=torch.float64, device=g1.device)
+    for py in range(-patch_r, patch_r + 1):
+        for px in range(-patch_r, patch_r + 1):
+            yy, xx = ys + py, xs + px
+            pin = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+            ty, tx = yy + dy, xx + dx
+            tin = (ty >= 0) & (ty < h) & (tx >= 0) & (tx < w)
+            a = g1[bi, yy.clamp(0, h - 1), xx.clamp(0, w - 1)]
+            v = torch.where(tin, g2[bi, ty.clamp(0, h - 1),
+                                    tx.clamp(0, w - 1)], 0.0)
+            tap = (a - v).abs() + torch.where(tin, 0.0, 1e3)
+            cost += torch.where(pin, tap, 0.0)
+    return cost
+
+
+def _match_pairs(name, b, h, w, device):
+    """b image pairs [b, 2, 3, h, w] in 8-bit values: frames 2 and 3 of the
+    bench scene (pair s moving (1.5 + 0.2 s, -0.8) px/frame); "flat" lays
+    two grey blocks over most of both frames."""
+    import torch
+
+    from slowflow_tpu_torch.bench_scene import moving_sequence
+
+    seq = np.round(np.stack([moving_sequence(4, h, w, 1.5 + 0.2 * s, -0.8,
+                                             seed=s)[2:4]
+                             for s in range(b)]))
+    if name == "flat":
+        seq[..., 20:140, 30:250] = 90.0
+        seq[..., 150:260, 200:460] = 200.0
+    return torch.tensor(seq, dtype=torch.float32, device=device)
+
+
+def _ptxas_report(source: str) -> list:
+    """ptxas's lines (registers, shared bytes, spills) of one source from
+    the build's log."""
+    from slowflow_tpu_torch import kernels
+
+    log = kernels.library_path().parent / "ptxas.log"
+    lines, inside = [], False
+    for line in log.read_text().splitlines() if log.exists() else []:
+        if line.startswith("== "):
+            inside = line == f"== {source}"
+        elif inside and ("registers" in line or "spill" in line
+                         or "Compiling" in line):
+            lines.append(line.strip())
+    return lines
+
+
+def matcher_vs_twin():
+    """The grid matcher's kernel against its twin on the card at phase 5's,
+    stage 1's, a radius above 64 and a flat scene: labels both directions
+    (equal but at ties, float64 costs on the card), kept matches, time,
+    device time, launches, bound, band plan, registers and blocks per
+    SM."""
+    import ctypes
+
+    import torch
+
+    from slowflow_tpu_torch import kernels
+    from slowflow_tpu_torch.core.image import luminance
+    from slowflow_tpu_torch.epic import matching
+
+    dev = torch.device("cuda")
+    lib = kernels.load()
+    p = MATCH_PATCH_R
+    RECORD["matcher_ptxas"] = _ptxas_report("grid_match.cu")
+    print("ptxas grid_match.cu: " + " | ".join(RECORD["matcher_ptxas"]))
+
+    def twin(*args):
+        return matching._best_displacement_chunked(*args)
+
+    for name, (b, h, w, r, textured) in MATCH_SHAPES.items():
+        pairs = _match_pairs(name, b, h, w, dev)
+        im1, im2 = pairs[:, 0].contiguous(), pairs[:, 1].contiguous()
+        g1, g2 = luminance(im1), luminance(im2)
+        grid_y, grid_x = np.mgrid[4:h:8, 4:w:8]
+        ys, xs = (torch.as_tensor(a.ravel(), device=dev).expand(b, -1)
+                  .contiguous() for a in (grid_y, grid_x))
+        d = 2 * r + 1
+        kf = matching.grid_match(g1, g2, ys, xs, r, p)
+        tf = twin(g1, g2, ys, xs, r, p)
+        y2 = (ys + kf // d - r).clamp(0, h - 1)
+        x2 = (xs + kf % d - r).clamp(0, w - 1)
+        kb = matching.grid_match(g2, g1, y2, x2, r, p)
+        tb = twin(g2, g1, y2, x2, r, p)
+        torch.cuda.synchronize()
+        differ, not_ties, cost_diff = 0, 0, 0.0
+        tie_points = set()
+        for a, c, y, x, k1, k2 in ((g1, g2, ys, xs, kf, tf),
+                                   (g2, g1, y2, x2, kb, tb)):
+            m = k1 != k2
+            if not bool(m.any()):
+                continue
+            c1 = _costs64(a, c, y, x, k1, r, p)[m]
+            c2 = _costs64(a, c, y, x, k2, r, p)[m]
+            gap = (c1 - c2).abs()
+            differ += int(m.sum())
+            not_ties += int((gap > MATCH_TIE_REL * torch.maximum(
+                c1, c2).clamp_min(1e-30)).sum())
+            cost_diff = max(cost_diff, float(gap.max()))
+            tie_points.update(map(tuple, m.nonzero().tolist()))
+        # kept matches through the entry point: where they differ, the
+        # grid point's label differed (at a tie) in one of the directions
+        got = matching.grid_matches_batched(im1, im2, radius=r)
+        with mock.patch.object(matching, "grid_match", twin):
+            want = matching.grid_matches_batched(im1, im2, radius=r)
+        gw = grid_x.shape[1]
+        kept_differ = set()
+        for bi, (a, c) in enumerate(zip(got, want)):
+            rows = {tuple(m) for m in a.tolist()} ^ {tuple(m) for m in
+                                                     c.tolist()}
+            kept_differ.update((bi, int(y0 - 4) // 8 * gw + int(x0 - 4) // 8)
+                               for x0, y0, _, _ in rows)
+        kept_equal = not kept_differ
+
+        def kern_fwd():
+            matching.grid_match(g1, g2, ys, xs, r, p)
+
+        def kern_bwd():
+            matching.grid_match(g2, g1, y2, x2, r, p)
+
+        def kern_core():
+            kern_fwd()
+            kern_bwd()
+
+        def twin_core():
+            twin(g1, g2, ys, xs, r, p)
+            twin(g2, g1, y2, x2, r, p)
+
+        # profiled a direction at a time (the profiler has dropped the
+        # record of one of two back-to-back launches of this kernel)
+        prof = [_one_call_profile(fn) for fn in (kern_fwd, kern_bwd)]
+
+        plan = (ctypes.c_longlong * 5)()
+        kernels.check(lib.sf_grid_match_plan(h, w, r, p, plan),
+                      "sf_grid_match_plan")
+        occ = (ctypes.c_int * 3)()
+        kernels.check(lib.sf_grid_match_occupancy(plan[4], occ),
+                      "sf_grid_match_occupancy")
+        entry = dict(scene=name, shape=[b, h, w], radius=r, patch_r=p,
+                     points=ys.shape[1], labels_differ=differ,
+                     labels_differ_not_ties=not_ties, abs_err=cost_diff,
+                     kept_equal=kept_equal,
+                     kept_differ_at_ties=len(kept_differ & tie_points),
+                     kept_differ_elsewhere=len(kept_differ - tie_points),
+                     kept=[len(m) for m in got], kept_twin=[len(m) for m in
+                                                           want],
+                     ms=cuda_ms(kern_core), plain_ms=cuda_ms(twin_core, 1),
+                     library_ms=None,
+                     **_work_match(((ys, xs), (y2, x2)), h, w, r, p, b),
+                     launches_per_call=sum(q["launches_per_call"]
+                                           for q in prof),
+                     device_ms=sum(q["device_ms"] for q in prof),
+                     profile_counts=[q["profile_counts"] for q in prof],
+                     plan=dict(zip(("band", "bands", "window_rows",
+                                    "window_cols", "smem_bytes"), plan)),
+                     blocks_per_sm=occ[0], registers=occ[1],
+                     spill_bytes=occ[2])
+        RECORD.setdefault("kernels_vs_twins", {}).setdefault(
+            "grid_match", []).append(entry)
+        what = f"matcher {name} {b}x{h}x{w} r={r}"
+        print(f"{what}: {differ} labels differ from the twin's (both "
+              f"directions, {2 * b * ys.shape[1]} points), {not_ties} of "
+              f"them not ties; kept {entry['kept']} (twin "
+              f"{entry['kept_twin']}), {len(kept_differ)} grid points kept "
+              f"differently, {entry['kept_differ_elsewhere']} of them "
+              f"without a tie; {entry['ms']:.3f} ms vs twin "
+              f"{entry['plain_ms']:.1f} ms, device {entry['device_ms']:.3f} "
+              f"ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), "
+              f"{entry['launches_per_call']} launches; plan "
+              f"{entry['plan']}, {occ[0]} blocks/SM, {occ[1]} registers, "
+              f"{occ[2]} B spilled")
+        check(not_ties == 0, f"{what}: labels equal to the twin's but at "
+              f"ties ({differ} differ, {not_ties} by more than "
+              f"{MATCH_TIE_REL} relative)")
+        check(entry["launches_per_call"] == 2,
+              f"{what}: {entry['launches_per_call']} CUDA launches for the "
+              "two directions (one each)")
+        if textured:
+            check(entry["kept_differ_elsewhere"] == 0,
+                  f"{what}: kept matches equal to the twin's but where a "
+                  f"label tied ({len(kept_differ)} grid points differ)")
+
+
 # ---------------------------------------------------------------- phase 3
 def _bench_scene(b, h, w, device):
     import torch
@@ -1097,8 +1367,24 @@ def cli_stage2_epic():
                     sec, n = totals.get(name, (0.0, 0))
                     print(f"  {name:<24} {sec:8.3f} s  x{n:<3} "
                           f"{sec / max(n_batch, 1):8.3f} s per batch")
+                init = {k: totals.get(k, (0.0, 0))[0] for k in (
+                    "sf.matches", "sf.epic", "sf.epic_post", "sf.init_wait")}
+                work = init["sf.matches"] + init["sf.epic"] \
+                    + init["sf.epic_post"]
+                r.update(matcher_s=init["sf.matches"],
+                         matcher_share_of_init=init["sf.matches"]
+                         / max(work, 1e-9),
+                         init_wait_s=init["sf.init_wait"])
+                print(f"  matcher: {init['sf.matches']:.3f} s, "
+                      f"{r['matcher_share_of_init']:.1%} of the init's "
+                      f"{work:.3f} s on the prefetch thread; the solve "
+                      f"waited {init['sf.init_wait']:.3f} s for it "
+                      f"(sf.init_wait); grid_match launches "
+                      f"{counts['grid_match']}")
                 check(bool(kept) and min(kept) > 100,
                       f"{what}: the matcher kept {kept} matches per jet")
+                check(counts["grid_match"] > 0, f"{what}: the matcher "
+                      f"kernel launched ({counts['grid_match']} launches)")
 
 
 def stage1():
@@ -1115,7 +1401,8 @@ def stage1():
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         tmp = Path(tmp)
         _write_scene_pngs(tmp / "seq", 42)
-        with phases.recording() as timed_phases:
+        with phases.recording() as timed_phases, \
+                twoframe_graph_counts() as tf_graphs:
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
@@ -1132,9 +1419,17 @@ def stage1():
             if qf.exists() else []
     target = float(np.hypot(*BENCH_UV))
     rec.update(rc=rc, wall_s=wall, launches=counts, quantil=values,
-               phases={k: v for k, v in totals.items()})
+               phases={k: v for k, v in totals.items()},
+               twoframe_graphs=tf_graphs)
     check(rc == 0, f"stage 1: exit code {rc} ({wall:.1f} s)")
-    check(counts["sor"] > 0, f"stage 1: launches {counts} (K5 sor)")
+    check(counts["sor"] > 0 and counts["grid_match"] > 0,
+          f"stage 1: launches {counts} (K5 sor, the matcher's grid_match)")
+    print(f"  two-frame solve: {tf_graphs['calls']} calls, "
+          f"{tf_graphs['captures']} graph captures, {tf_graphs['replays']} "
+          "replays")
+    check(tf_graphs["calls"] >= 1 and tf_graphs["captures"]
+          + tf_graphs["replays"] == tf_graphs["calls"],
+          f"stage 1: the two-frame solve ran as a CUDA graph ({tf_graphs})")
     check(bool(values) and abs(values[0] - target) <= QUANTIL_TOL * target,
           f"stage 1: quantil.dat {values} vs |(u, v)| = {target:.3f}")
     for name in ("af.read_frames", "af.preprocess", "af.matches", "af.epic",
@@ -1145,6 +1440,7 @@ def stage1():
 
 
 def epicflow_cli():
+    from slowflow_tpu_torch import kernels
     from slowflow_tpu_torch.cli import epicflow
     from slowflow_tpu_torch.io import read_flo
 
@@ -1152,18 +1448,29 @@ def epicflow_cli():
         tmp = Path(tmp)
         _write_scene_pngs(tmp / "seq", 2)
         out = tmp / "pair.flo"
-        t0 = time.perf_counter()
-        rc = epicflow.main([str(tmp / "seq" / "frame_000.png"),
-                            str(tmp / "seq" / "frame_001.png"), "auto",
-                            "auto", str(out), "-sintel"])
-        wall = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        with twoframe_graph_counts() as tf_graphs:
+            t0 = time.perf_counter()
+            rc = epicflow.main([str(tmp / "seq" / "frame_000.png"),
+                                str(tmp / "seq" / "frame_001.png"), "auto",
+                                "auto", str(out), "-sintel"])
+            wall = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
         flow = read_flo(out) if out.exists() else None
     check(rc == 0 and flow is not None,
           f"epicflow CLI: exit code {rc} ({wall:.1f} s)")
     if flow is None:
         return
     med = [float(np.median(flow[8:-8, 8:-8, c])) for c in (0, 1)]
-    RECORD["epicflow_cli"] = dict(rc=rc, wall_s=wall, median_flow=med)
+    RECORD["epicflow_cli"] = dict(rc=rc, wall_s=wall, median_flow=med,
+                                  launches=counts, twoframe_graphs=tf_graphs)
+    print(f"epicflow CLI: {wall:.3f} s, launches {counts}; two-frame solve "
+          f"{tf_graphs}")
+    check(counts["grid_match"] == 2 and counts["sor"] > 0
+          and tf_graphs["calls"] == 1 and tf_graphs["captures"]
+          + tf_graphs["replays"] == 1, "epicflow CLI: the matcher kernel "
+          f"(2 launches), K5 and the two-frame solve as a CUDA graph "
+          f"({tf_graphs})")
     check(all(abs(m - t) <= EPICFLOW_TOL for m, t in zip(med, BENCH_UV)),
           f"epicflow CLI: interior median flow ({med[0]:.4f}, {med[1]:.4f}) "
           f"vs {BENCH_UV}")
@@ -2153,12 +2460,10 @@ def stage3_dispatch():
         return dict(flows=flows, occs=occs, solves=solves, banks=banks,
                     timing=info["timing"], wall_s=wall)
 
-    # the earlier phases' graphs and cached blocks: a capture cannot hand
-    # cached memory back to the device, so free it before the first one
+    # the earlier phases' graphs (closing them hands their memory and the
+    # cached blocks back to the device)
     graphs.clear()
     graphs.clear_shared()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
     with eager_dts():
         driver.track_final_pairs_batched(replace(cfg, alternate=2), [job],
                                          device=dev, _eager=True)
@@ -2250,6 +2555,298 @@ def stage3_dispatch():
     print(f"stage3_dispatch took {rec['phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 16
+TWOFRAME_SHAPES = {"stage1": (40, 270, 480), "epicflow": (1, 270, 480)}
+
+
+def _twoframe_inputs(b, h, w, device, seed=0):
+    """Frames 2 and 3 of the bench scene (pair s moving (1.5 + 0.2 s, -0.8)
+    px/frame) and a rough initial flow."""
+    import torch
+
+    seq = _bench_scene(b, h, w, device)
+    rng = np.random.default_rng(seed)
+    u = 1.5 + 0.2 * np.arange(b)[:, None, None]
+    wx = u + rng.normal(0, 0.3, (b, h, w))
+    wy = -0.8 + rng.normal(0, 0.3, (b, h, w))
+    return [torch.tensor(a, dtype=torch.float32, device=device)
+            for a in (wx, wy)] + [seq[:, 2].float().contiguous(),
+                                  seq[:, 3].float().contiguous()]
+
+
+def twoframe_dispatch():
+    """Phase 16: the two-frame solve eager against its CUDA graph at stage
+    1's batch and the epicflow CLI's single pair."""
+    import torch
+
+    from slowflow_tpu_torch import kernels
+    from slowflow_tpu_torch.variational import graphs, twoframe
+
+    dev = torch.device("cuda")
+    p = twoframe.TwoFrameParams.sintel()
+    for name, (b, h, w) in TWOFRAME_SHAPES.items():
+        args = _twoframe_inputs(b, h, w, dev)
+
+        def solve(eager):
+            out = twoframe.variational_twoframe_batched(*args, p,
+                                                        _eager=eager)
+            torch.cuda.synchronize()
+            return out
+
+        def timed(eager):
+            walls = []
+            for _ in range(GRAPH_REPS):
+                t0 = time.perf_counter()
+                solve(eager)
+                walls.append(time.perf_counter() - t0)
+            return walls
+
+        graphs.clear()
+        solve(True)                                  # warm-up
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        eager = solve(True)
+        e_counts = dict(kernels.LAUNCHES)
+        e_peak = torch.cuda.max_memory_allocated() - base
+        e_walls = timed(True)
+        graphs.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = solve(False)                         # eager run + capture
+        first_wall = time.perf_counter() - t0
+        f_counts = dict(kernels.LAUNCHES)
+        g_peak = torch.cuda.max_memory_allocated() - base
+        kept = torch.cuda.memory_allocated() - base
+        stats = dict(graphs.STATS)
+        kernels.reset_launch_counts()
+        replay = solve(False)
+        r_counts = dict(kernels.LAUNCHES)
+        g_walls = timed(False)
+        captures_on_replay = graphs.STATS["captures"] - stats["captures"]
+        e_prof = _dispatch_profile(lambda: solve(True))
+        g_prof = _dispatch_profile(lambda: solve(False))
+        bitwise = {k: all(torch.equal(side[i], eager[i])
+                          for side in (first, replay))
+                   for i, k in enumerate(("wx", "wy"))}
+        e_med, g_med = float(np.median(e_walls)), float(np.median(g_walls))
+        rec = dict(batch=b, height=h, width=w, bitwise=bitwise,
+                   eager_wall_s=e_walls, graph_wall_s=g_walls,
+                   eager_median_s=e_med, graph_median_s=g_med,
+                   first_graph_run_s=first_wall, captures=stats["captures"],
+                   capture_s=stats["capture_s"],
+                   captures_on_replay=captures_on_replay,
+                   eager_launches=e_counts, first_run_launches=f_counts,
+                   replay_launches=r_counts,
+                   eager_peak_gib=e_peak / 2 ** 30,
+                   graph_peak_gib=g_peak / 2 ** 30,
+                   extra_peak_gib=(g_peak - e_peak) / 2 ** 30,
+                   graphs_kept_gib=kept / 2 ** 30, eager_profile=e_prof,
+                   graph_profile=g_prof)
+        RECORD.setdefault("twoframe_dispatch", {})[name] = rec
+        print(f"twoframe {name} {b}x{h}x{w}: eager {e_med:.4f} s "
+              f"{[round(t, 4) for t in e_walls]}, graph {g_med:.4f} s "
+              f"{[round(t, 4) for t in g_walls]}; first run {first_wall:.3f}"
+              f" s ({stats['captures']} capture, {stats['capture_s']:.3f} s)"
+              f", {captures_on_replay} captures on the replay; peak above "
+              f"the inputs eager {rec['eager_peak_gib']:.3f} GiB, graph "
+              f"{rec['graph_peak_gib']:.3f} GiB, kept "
+              f"{rec['graphs_kept_gib']:.3f} GiB; bitwise {bitwise}; "
+              f"launches eager {e_counts['sor']}, replay {r_counts['sor']}")
+        for side, prof in (("eager", e_prof), ("graph", g_prof)):
+            print(f"  profiled {side}: wall {prof['wall_ms']:.1f} ms, host "
+                  f"launch calls {prof['host_launch_calls']} "
+                  f"{prof['host_launch_calls_by_api']}, device kernels "
+                  f"{prof['device_kernels']}, busy "
+                  f"{prof['device_busy_ms']:.1f} ms, idle share "
+                  f"{prof['idle_share']:.3f}")
+        what = f"twoframe {name}"
+        check(all(bitwise.values()), f"{what}: the graph equals the eager "
+              f"solve bitwise on the capturing and the replaying call "
+              f"({bitwise})")
+        check(stats["captures"] == 1 and captures_on_replay == 0,
+              f"{what}: one capture, none on the second call")
+        check(e_counts["sor"] == f_counts["sor"] == r_counts["sor"]
+              == p.niter_outer * p.niter_inner,
+              f"{what}: K5 launches eager {e_counts['sor']}, first "
+              f"{f_counts['sor']}, replay {r_counts['sor']}")
+        check(g_prof["host_launch_calls_by_api"].get("cudaGraphLaunch", 0)
+              == 1 and e_prof["device_busy_ms"] > 0,
+              f"{what}: one graph launch a call, device time both ways")
+    graphs.clear()
+
+
+# ---------------------------------------------------------------- phase 17
+# the sweep of distinct shapes, more than graphs.MAX_PROGRAMS Programs on
+# this thread: (kind, batch, H, W); stage 3 at Jets 4, 2 alternations, the
+# levels at the bench config cut to 2 x 2
+MEMORY_SWEEP = (
+    [("stage3", 1, 136, 240)]
+    + [("level", 2, 48 + 8 * i, 64 + 16 * i) for i in range(12)]
+    + [("twoframe", b, 64 + 32 * b, 96 + 32 * b) for b in (1, 2)]
+    + [("stage3", 1, 180, 320)]
+    + [("twoframe", b, h, w) for b, h, w in ((8, 135, 240), (2, 200, 300))]
+    + [("level", 2, 160 + 8 * i, 280 + 16 * i) for i in range(2)])
+HOG_CHUNKS = (2 ** 30, 2 ** 26)   # bytes per block that fills the device
+
+
+def _sweep_step(kind, b, h, w, dev):
+    import torch
+
+    from slowflow_tpu_torch.bench_scene import (stage3_config,
+                                                stage3_final_pair)
+    from slowflow_tpu_torch.tracking import driver
+    from slowflow_tpu_torch.variational import multiframe, twoframe
+
+    if kind == "stage3":
+        job, _ = stage3_final_pair(h=h, w=w, jets=4, device=dev)
+        driver.track_final_pairs_batched(stage3_config(jets=4, alternate=2),
+                                         [job], device=dev)
+    elif kind == "twoframe":
+        twoframe.variational_twoframe_batched(
+            *_twoframe_inputs(b, h, w, dev), twoframe.TwoFrameParams.sintel())
+    else:
+        seq = _bench_scene(b, h, w, dev).float()
+        z = torch.zeros((b, h, w), device=dev)
+        multiframe.compute_one_level(
+            z, z, seq, torch.ones((b, 3, h, w), device=dev),
+            torch.zeros((b, 3), device=dev), torch.ones((b, 3), device=dev),
+            bench_params(niter_alter=2, niter_outer=2))
+    torch.cuda.synchronize()
+
+
+def _bench_level(b, dev):
+    """The bench level (the finest of the bench slice, zero flow), through
+    the graphs and eagerly: (graph result, eager result)."""
+    import torch
+
+    from slowflow_tpu_torch.variational import multiframe
+
+    seq = _bench_scene(b, 270, 480, dev).float()
+    z = torch.zeros((b, 270, 480), device=dev)
+    args = (z, z, seq, torch.ones((b, 3, 270, 480), device=dev),
+            torch.zeros((b, 3), device=dev), torch.ones((b, 3), device=dev),
+            bench_params())
+    got = multiframe.compute_one_level(*args)
+    torch.cuda.synchronize()
+    return got, multiframe.compute_one_level(*args, _eager=True)
+
+
+def graph_memory():
+    """Phase 17: graph memory in a long-lived process. One host thread
+    runs more than graphs.MAX_PROGRAMS distinct shapes (jet-solve levels,
+    two-frame solves, two stage-3 final pairs); reserved memory after the
+    sweep must stay within what it was at the 16th Program plus the largest
+    step's growth. Then the bench level captures with no empty_cache by
+    the caller, and once more (at B = 2) with the device's memory held in
+    the allocator's cache; both equal the eager level bitwise."""
+    import torch
+
+    from slowflow_tpu_torch.variational import graphs
+
+    dev = torch.device("cuda")
+    gib = 2 ** 30
+    graphs.clear()
+    graphs.clear_shared()
+    graphs.reset_stats()
+    start_reserved = torch.cuda.memory_reserved()
+    steps = []
+    for kind, b, h, w in MEMORY_SWEEP:
+        before = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        _sweep_step(kind, b, h, w, dev)
+        steps.append(dict(kind=kind, shape=[b, h, w],
+                          s=time.perf_counter() - t0,
+                          reserved_gib=torch.cuda.memory_reserved() / gib,
+                          growth_gib=(torch.cuda.memory_reserved() - before)
+                          / gib,
+                          allocated_gib=torch.cuda.memory_allocated() / gib,
+                          programs=len(graphs.cached_keys()),
+                          shared=len(graphs.shared_keys()),
+                          releases=dict(graphs.RELEASES)))
+    at_16 = next((st for st in steps
+                  if st["programs"] >= graphs.MAX_PROGRAMS), None)
+    largest = max(st["growth_gib"] for st in steps)
+    end = steps[-1]
+    rec = dict(steps=steps, largest_growth_gib=largest,
+               reserved_before_gib=start_reserved / gib,
+               reserved_at_16_gib=at_16 and at_16["reserved_gib"],
+               reserved_end_gib=end["reserved_gib"],
+               releases_in_sweep=dict(graphs.RELEASES))
+    RECORD["graph_memory"] = rec
+    for st in steps:
+        print(f"  {st['kind']:8s} {st['shape']}: {st['s']:.2f} s, reserved "
+              f"{st['reserved_gib']:.3f} GiB ({st['growth_gib']:+.3f}), "
+              f"allocated {st['allocated_gib']:.3f} GiB, {st['programs']} "
+              f"Programs on this thread, {st['shared']} shared, releases "
+              f"{st['releases']}")
+    check(at_16 is not None and end["programs"] == graphs.MAX_PROGRAMS
+          and graphs.RELEASES["on_close"] > 0,
+          f"graph memory: the sweep passed {graphs.MAX_PROGRAMS} Programs "
+          f"on one thread and dropped the oldest ({graphs.RELEASES})")
+    if at_16 is not None:
+        check(end["reserved_gib"] <= at_16["reserved_gib"] + largest,
+              f"graph memory: reserved after the sweep "
+              f"{end['reserved_gib']:.3f} GiB <= at the 16th Program "
+              f"{at_16['reserved_gib']:.3f} + the largest step "
+              f"{largest:.3f} GiB")
+    # without an empty_cache by the caller, dropping the Programs hands
+    # their memory back
+    graphs.clear()
+    graphs.clear_shared()
+    rec["reserved_after_clear_gib"] = torch.cuda.memory_reserved() / gib
+    check(rec["reserved_after_clear_gib"] <= rec["reserved_before_gib"]
+          + 0.25, f"graph memory: reserved after dropping the Programs "
+          f"{rec['reserved_after_clear_gib']:.3f} GiB <= before the sweep "
+          f"{rec['reserved_before_gib']:.3f} + 0.25 GiB")
+    # the sweep again, then the bench level's capture, no empty_cache here
+    for kind, b, h, w in MEMORY_SWEEP:
+        _sweep_step(kind, b, h, w, dev)
+    t0 = time.perf_counter()
+    got, want = _bench_level(4, dev)
+    rec["bench_level"] = dict(
+        s=time.perf_counter() - t0,
+        bitwise=all(torch.equal(g, e) for g, e in zip(got, want)),
+        reserved_gib=torch.cuda.memory_reserved() / gib,
+        releases=dict(graphs.RELEASES))
+    check(rec["bench_level"]["bitwise"], "graph memory: the bench level "
+          "captured after the sweep and equals the eager level bitwise")
+    # the device's memory held in the allocator's cache, then a first
+    # capture with no Program to drop (so nothing was released before it)
+    del got, want
+    graphs.clear()
+    graphs.clear_shared()
+    hog = []
+    for size in HOG_CHUNKS:
+        while True:
+            try:
+                hog.append(torch.empty(size, dtype=torch.uint8, device=dev))
+            except torch.cuda.OutOfMemoryError:
+                break
+    free_full = torch.cuda.mem_get_info()[0]
+    held = sum(t.numel() for t in hog)
+    del hog
+    before = dict(graphs.RELEASES)
+    t0 = time.perf_counter()
+    got, want = _bench_level(2, dev)
+    rec["full_cache"] = dict(
+        held_gib=held / gib, free_when_full_gib=free_full / gib,
+        s=time.perf_counter() - t0,
+        bitwise=all(torch.equal(g, e) for g, e in zip(got, want)),
+        releases_before_capture=graphs.RELEASES["before_capture"]
+        - before["before_capture"])
+    print(f"graph memory: bench level after the sweep "
+          f"{rec['bench_level']}; with {held / gib:.2f} GiB held in the cache"
+          f" ({free_full / gib:.3f} GiB free) {rec['full_cache']}")
+    check(rec["full_cache"]["bitwise"]
+          and rec["full_cache"]["releases_before_capture"] > 0,
+          "graph memory: with the device's memory in the cache the first "
+          "capture released it and equals the eager level bitwise")
+    graphs.clear()
+    graphs.clear_shared()
+
+
 def main() -> int:
     import torch
 
@@ -2271,6 +2868,15 @@ def main() -> int:
         with open(OUT_DIR / "chip_smoke_stage3.json", "w") as fh:
             json.dump(RECORD, fh, indent=1)
         print("stage3 phase " + ("FAILED:\n  " + "\n  ".join(FAILURES)
+                                 if FAILURES else "ok"))
+        return 1 if FAILURES else 0
+    if sys.argv[1:2] == ["--match"]:
+        OUT_DIR.mkdir(exist_ok=True)
+        for fn in (build, matcher_vs_twin, twoframe_dispatch, graph_memory):
+            phase(fn)
+        with open(OUT_DIR / "chip_smoke_match.json", "w") as fh:
+            json.dump(RECORD, fh, indent=1)
+        print("match phases " + ("FAILED:\n  " + "\n  ".join(FAILURES)
                                  if FAILURES else "ok"))
         return 1 if FAILURES else 0
     if sys.argv[1:2] == ["--graphs"]:
@@ -2295,12 +2901,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    for fn in (build, kernels_vs_twins, route_kernels_vs_twins, slice_merged,
-               slice_stack_composed, slice_unfused_pallas_warp,
-               slice_profiles, cli_stage2, cli_stage2_epic, stage1,
-               epicflow_cli, stage3_final_pair, stage3_batched, cli_stage3,
-               pipeline, sharded_solve, sp_solve, graphs_dispatch,
-               stage3_dispatch):
+    for fn in (build, kernels_vs_twins, route_kernels_vs_twins,
+               matcher_vs_twin, slice_merged, slice_stack_composed,
+               slice_unfused_pallas_warp, slice_profiles, cli_stage2,
+               cli_stage2_epic, stage1, epicflow_cli, stage3_final_pair,
+               stage3_batched, cli_stage3, pipeline, sharded_solve, sp_solve,
+               graphs_dispatch, stage3_dispatch, twoframe_dispatch,
+               graph_memory):
         phase(fn)
 
     kv = RECORD.get("kernels_vs_twins", {})
@@ -2340,12 +2947,39 @@ def main() -> int:
                      "slowflow_tpu/core/warp_pallas.py:138", "unfused",
                      lambda r: True),
     ]}
+    # the matcher: a kernel for a JAX compiled program (jit of
+    # _grid_match_core), not a pl.pallas_call site; its main path is phase
+    # 5's EPIC-initialized CLI run, its main shape that run's
+    match_rows = kv.get("grid_match", [])
+    main = next((r for r in match_rows if r["scene"] == "stage2"), {})
+    epic_counts = RECORD.get("cli_stage2_epic", {}).get(
+        "deep_matching_1", {}).get("launches", {})
+    line["kernels"].append({
+        "name": "grid_match", "route": "cuda", "source": csrc
+        + "grid_match.cu", "replaces": "slowflow_tpu/epic/matching.py:72",
+        "tpu_kernel": "none: the JAX package's jitted _grid_match_core "
+                      "(no pl.pallas_call)",
+        "launches": epic_counts.get("grid_match", 0),
+        "max_abs_err": max((r["abs_err"] for r in match_rows), default=None),
+        **{k: main.get(k) for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_per_call", "device_ms")},
+        "stage1_launches": RECORD.get("stage1", {}).get("launches", {}).get(
+            "grid_match", 0),
+        "shapes": {r["scene"]: {k: r.get(k) for k in (
+            "shape", "radius", "ms", "device_ms", "plain_ms", "bound_ms",
+            "labels_differ", "labels_differ_not_ties")}
+            for r in match_rows}})
     # K5 on stage 1's path: launches of the stage-1 run, time at B = 40
     k5_b40 = [r for r in kv.get("sor", []) if r["shape"] == [40, 270, 480]]
     line["kernels"][4]["stage1_launches"] = RECORD.get("stage1", {}).get(
         "launches", {}).get("sor", 0)
     line["kernels"][4]["b40"] = {k: k5_b40[0].get(k) for k in (
         "ms", "plain_ms", "bound_ms", "device_ms")} if k5_b40 else None
+    # K5 inside the two-frame solve's CUDA graph (phase 16, per replay)
+    line["kernels"][4]["twoframe_graph_launches"] = {
+        name: r["replay_launches"]["sor"]
+        for name, r in RECORD.get("twoframe_dispatch", {}).items()}
     # K1 / K2 launches on the EPIC-initialized CLI run
     epic_run = RECORD.get("cli_stage2_epic", {}).get("deep_matching_1", {})
     for entry in line["kernels"][:2]:

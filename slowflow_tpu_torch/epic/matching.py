@@ -9,10 +9,15 @@ to the first displacement in k = (dy+r)*(2r+1) + (dx+r) order. Each match is
 then matched back from its target, and kept when the forward-backward error
 is at most `fb_threshold` px.
 
-The search loops over dy on the host and vectorizes over dx and the batch:
-per dy one [B, H, 2r+1, W] cost stack, its horizontal patch sum, then the
-vertical patch sum gathered at the points only, and a running minimum that
-keeps the first index on ties.
+On CUDA tensors the search is one launch of the hand-written kernel
+csrc/grid_match.cu per direction (`grid_match`): a block per point holds
+the point's search window in shared memory and computes costs at the points
+only, the counterpart of the JAX package's compiled `_grid_match_core`. On
+CPU tensors it is the plain twin `_best_displacement`, which loops over dy
+on the host and vectorizes over dx and the batch: per dy one
+[B, H, 2r+1, W] cost stack, its horizontal patch sum, then the vertical
+patch sum gathered at the points only, and a running minimum that keeps
+the first index on ties; `_CHUNK_ELEMENTS` bounds its stack's size.
 """
 from __future__ import annotations
 
@@ -20,8 +25,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from ..core.image import luminance
-from ..runtime import as_f32, device_of
+from ..runtime import as_f32, device_of, on_device
 
 # elements of one [B, H, 2r+1, W] cost stack per chunk of the batch
 _CHUNK_ELEMENTS = 1 << 26
@@ -61,16 +67,59 @@ def _best_displacement(g1, g2, ys, xs, radius: int, patch_r: int):
     return best_k
 
 
-def _match_points(g1, g2, ys, xs, radius: int, patch_r: int):
+def _best_displacement_chunked(g1, g2, ys, xs, radius: int, patch_r: int):
     """`_best_displacement` in chunks of the batch that bound the cost
-    stack's size; returns (dx, dy) [B, P] int64."""
+    stack's size."""
     b, h, w = g1.shape
+    chunk = max(1, _CHUNK_ELEMENTS // (h * (2 * radius + 1) * w))
+    return torch.cat([_best_displacement(
+        g1[i:i + chunk], g2[i:i + chunk], ys[i:i + chunk], xs[i:i + chunk],
+        radius, patch_r) for i in range(0, b, chunk)])
+
+
+def grid_match(g1, g2, ys, xs, radius: int, patch_r: int):
+    """`_best_displacement` through the CUDA kernel (csrc/grid_match.cu):
+    g1, g2 contiguous float32 [B, H, W], ys, xs contiguous int64 [B, P]
+    inside the image, all on the calling thread's current CUDA device.
+    Launches on the current stream; returns k [B, P] int64. A failed
+    build or launch raises."""
+    dev = g1.device
+    if dev.type != "cuda":
+        raise ValueError(f"grid_match: tensors on {dev}, expected CUDA")
+    if g1.dim() != 3:
+        raise ValueError(f"g1: expected [B, H, W], got {tuple(g1.shape)}")
+    b, h, w = g1.shape
+    kernels.require_f32_cuda("g1", g1, (b, h, w), dev)
+    kernels.require_f32_cuda("g2", g2, (b, h, w), dev)
+    p = ys.shape[-1] if ys.dim() == 2 else -1
+    for name, t in (("ys", ys), ("xs", xs)):
+        if t.device != dev or t.dtype != torch.int64 \
+                or tuple(t.shape) != (b, p) or not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous int64 [{b}, P] "
+                             f"tensor on {dev} (P as ys), got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if radius < 0 or patch_r < 0:
+        raise ValueError(f"radius {radius} and patch_r {patch_r} must be "
+                         ">= 0")
+    out = torch.empty((b, p), dtype=torch.int64, device=dev)
+    err = kernels.load().sf_grid_match(
+        *(kernels.ptr(t) for t in (g1, g2, ys, xs, out)), b, h, w, p,
+        int(radius), int(patch_r), kernels.stream_ptr(dev))
+    kernels.check(err, "grid_match")
+    kernels.count_launch("grid_match")
+    return out
+
+
+def _match_points(g1, g2, ys, xs, radius: int, patch_r: int):
+    """The first-index least-cost displacement at points (ys, xs) [B, P]:
+    the kernel on CUDA tensors, the chunked twin on CPU tensors. Returns
+    (dx, dy) [B, P] int64."""
+    if g1.device.type == "cpu":
+        k = _best_displacement_chunked(g1, g2, ys, xs, radius, patch_r)
+    else:
+        k = grid_match(g1.contiguous(), g2.contiguous(), ys.contiguous(),
+                       xs.contiguous(), radius, patch_r)
     d = 2 * radius + 1
-    chunk = max(1, _CHUNK_ELEMENTS // (h * d * w))
-    ks = [_best_displacement(g1[i:i + chunk], g2[i:i + chunk],
-                             ys[i:i + chunk], xs[i:i + chunk], radius,
-                             patch_r) for i in range(0, b, chunk)]
-    k = torch.cat(ks)
     return k % d - radius, k // d - radius
 
 
@@ -113,7 +162,9 @@ def grid_matches_batched(im1s, im2s, step: int = 8, radius: int = 32,
     ys_np, xs_np = np.mgrid[step // 2:h:step, step // 2:w:step]
     ys = torch.as_tensor(ys_np.ravel(), device=device)
     xs = torch.as_tensor(xs_np.ravel(), device=device)
-    dxf, dyf, fb_err = grid_match_core(im1s, im2s, ys, xs, radius, patch_r)
+    with on_device(device):
+        dxf, dyf, fb_err = grid_match_core(im1s, im2s, ys, xs, radius,
+                                           patch_r)
     dxf = dxf.cpu().numpy()
     dyf = dyf.cpu().numpy()
     keep = fb_err.cpu().numpy() <= fb_threshold

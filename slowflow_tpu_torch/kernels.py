@@ -63,16 +63,24 @@ _SIGNATURES = {
     # du, dv, a11, a12, a22, b1, b2, wh, wv, ndu, ndv, scratch,
     # scratch_floats, rows, B, H, W, iterations, omega, stream
     "sf_sor_coupled_rb": [_P] * 12 + [_L, _P] + [_I] * 4 + [_F, _P],
+    # g1, g2, ys, xs, out, B, H, W, P, radius, patch_r, stream
+    "sf_grid_match": [_P] * 5 + [_I] * 6 + [_P],
+    # H, W, radius, patch_r, out (5 int64: the matcher's band plan)
+    "sf_grid_match_plan": [_I] * 4 + [_P],
+    # smem, out (3 int: blocks per SM, registers, spill bytes)
+    "sf_grid_match_occupancy": [_L, _P],
 }
 
 # launches of each kernel wrapper; read and reset by callers that must show
 # a path went through the kernels. warp_stack and warp_stack_pallas are the
-# K4 and K6 entries of one kernel. Shards launch from several host threads,
-# so the counts change under a lock. While a thread captures a CUDA graph
+# K4 and K6 entries of one kernel; grid_match is the EPIC grid matcher's.
+# Shards and the EPIC prefetch launch from several host threads, so the
+# counts change under a lock. While a thread captures a CUDA graph
 # its wrappers count into the graph's own record instead (`recording`), and
 # every replay of that graph adds the record (`add_launches`).
 LAUNCHES = {"warp_assemble": 0, "solve_step": 0, "fused_data": 0,
-            "warp_stack": 0, "warp_stack_pallas": 0, "sor": 0}
+            "warp_stack": 0, "warp_stack_pallas": 0, "sor": 0,
+            "grid_match": 0}
 _count_lock = threading.Lock()
 _recorder = threading.local()
 

@@ -157,7 +157,7 @@ def default_draws(seed: int, device):
 
 def _sync(device):
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        graphs.synchronize(device)
 
 
 def _grid_positions(h, w, xy_incr, xy_start, device):

@@ -35,6 +35,18 @@ a time, and the next borrower's stream waits for the last one's work. A
 failed capture or replay raises; nothing falls back to the eager code.
 `Eager` stands in for a Program on the eager path (the CPU, and the eager
 switches that tests and chip_smoke.py use).
+
+Memory: a capture cannot hand cached memory back to the device (the
+caching allocator frees nothing while any capture is underway), and a
+closed Program's pool stays reserved until the cache is emptied. So a
+Program that is closed (dropped from a cache, `clear`, `discard`) empties
+the cache after resetting its graphs, and a first capture empties it
+beforehand when the device's free memory is below what the segment's
+eager first run may have needed (the allocator's peak since it was last
+reset, above what was allocated when the run began). Both happen under
+one lock that every capture holds, so no capture is underway meanwhile;
+`RELEASES` counts them. Device-wide syncs take the same lock
+(`synchronize`): the device refuses one while any stream captures.
 """
 from __future__ import annotations
 
@@ -57,14 +69,40 @@ _stats_lock = threading.Lock()
 STATS = {"captures": 0, "replays": 0, "capture_s": 0.0}
 
 
+# cache releases: before a first capture (device memory short), and after
+# Programs were closed
+RELEASES = {"before_capture": 0, "on_close": 0}
+# held by every capture and every cache release
+_capture_lock = threading.RLock()
+
+
 def _add_stat(key: str, value) -> None:
     with _stats_lock:
         STATS[key] += value
 
 
+def synchronize(device) -> None:
+    """torch.cuda.synchronize(device) while no thread captures: a
+    device-wide sync is refused while any stream of the device captures
+    (stage 3's init workers capture the distance transform's graphs while
+    other threads time their work)."""
+    with _capture_lock:
+        torch.cuda.synchronize(device)
+
+
+def release_cached_memory(reason: str = "on_close") -> None:
+    """Hand the caching allocator's unused blocks, closed Programs' pools
+    included, back to the device while no thread captures."""
+    with _capture_lock:
+        torch.cuda.empty_cache()
+    with _stats_lock:
+        RELEASES[reason] += 1
+
+
 def reset_stats() -> None:
     with _stats_lock:
         STATS.update(captures=0, replays=0, capture_s=0.0)
+        RELEASES.update(before_capture=0, on_close=0)
 
 
 def level_key(device, p, b: int, h: int, w: int, first_system: bool):
@@ -183,31 +221,46 @@ class Program:
         self._side.wait_stream(current)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(self._side):
+            base = torch.cuda.memory_allocated(self.device)
             fn()
-            with kernels.recording() as counts:
-                graph.capture_begin(pool=self.pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    fn()
-                except BaseException:
+            need = torch.cuda.max_memory_allocated(self.device) - base
+            with _capture_lock:
+                if torch.cuda.mem_get_info(self.device)[0] < need:
+                    release_cached_memory("before_capture")
+                with kernels.recording() as counts:
+                    graph.capture_begin(pool=self.pool,
+                                        capture_error_mode="thread_local")
                     try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass      # the capture was invalidated; fn's error
-                    raise
-                graph.capture_end()
+                        fn()
+                    except BaseException:
+                        try:
+                            graph.capture_end()
+                        except RuntimeError:
+                            pass  # the capture was invalidated; fn's error
+                        raise
+                    graph.capture_end()
         current.wait_stream(self._side)
         self.graphs[segment] = (graph, counts)
         _add_stat("captures", 1)
         _add_stat("capture_s", time.perf_counter() - t0)
 
     def close(self) -> None:
-        """Free the graphs and slots once the device has run them."""
-        torch.cuda.synchronize(self.device)
-        for graph, _ in self.graphs.values():
-            graph.reset()
-        self.graphs.clear()
-        self.inputs = self.state = self.level = None
+        """Free the graphs and slots once the device has run them (`_close`
+        then hands the memory back to the device)."""
+        with _capture_lock:
+            torch.cuda.synchronize(self.device)
+            for graph, _ in self.graphs.values():
+                graph.reset()
+            self.graphs.clear()
+            self.inputs = self.state = self.level = None
+
+
+def _close(progs) -> None:
+    """Close Programs and hand their memory back to the device."""
+    for prog in progs:
+        prog.close()
+    if progs:
+        release_cached_memory()
 
 
 def _cache() -> collections.OrderedDict:
@@ -224,8 +277,10 @@ def program(key, build) -> Program:
     if prog is not None:
         cache.move_to_end(key)
         return prog
+    dropped = []
     while len(cache) >= MAX_PROGRAMS:
-        cache.popitem(last=False)[1].close()
+        dropped.append(cache.popitem(last=False)[1])
+    _close(dropped)
     prog = cache[key] = build()
     return prog
 
@@ -235,14 +290,15 @@ def discard(key) -> None:
     state is unknown)."""
     prog = _cache().pop(key, None)
     if prog is not None:
-        prog.close()
+        _close([prog])
 
 
 def clear() -> None:
     """Drop every Program of this thread."""
     cache = _cache()
-    while cache:
-        cache.popitem()[1].close()
+    progs = list(cache.values())
+    cache.clear()
+    _close(progs)
 
 
 def cached_keys() -> list:
@@ -271,8 +327,7 @@ def _give_back(key, prog: Program) -> None:
             dropped.append(idle.pop(0))
             if not idle:
                 del _shared[oldest]
-    for old in dropped:
-        old.close()
+    _close(dropped)
 
 
 def clear_shared() -> None:
@@ -280,8 +335,7 @@ def clear_shared() -> None:
     with _shared_lock:
         idle = [p for progs in _shared.values() for p in progs]
         _shared.clear()
-    for prog in idle:
-        prog.close()
+    _close(idle)
 
 
 def shared_keys() -> list:
@@ -316,7 +370,7 @@ def running(key, device, graphed: bool, shared: bool = False):
     try:
         yield prog
     except BaseException:
-        prog.close()
+        _close([prog])
         raise
     prog.released = torch.cuda.Event()
     prog.released.record(torch.cuda.current_stream(device))

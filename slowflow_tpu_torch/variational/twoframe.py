@@ -9,6 +9,13 @@ K5 (csrc/solve_step.cu) on CUDA tensors, its plain twin
 `core.solver.sor_coupled_rb` (the function the JAX version calls) on CPU
 tensors. Every function batches over leading dims: images [..., 3, H, W],
 planes [..., H, W].
+
+On CUDA the whole refinement is one CUDA graph per shape, the counterpart
+of the JAX package's jitted solve: its loops have fixed counts and it reads
+nothing on the host, so `variational_twoframe_batched` runs it as one
+segment of a cached `graphs.Program` (key `twoframe_key`) whose Slots hold
+the inputs and the result, captured on the first call of a shape and
+replayed after, bitwise the eager solve. The CPU runs it eagerly.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from ..core.image import luminance
 from ..core.solver_pallas import sor_coupled_rb_pallas
 from ..core.warp import warp_bilinear
 from ..runtime import as_f32, device_of, on_device
+from . import graphs
 from .terms import _east, _fold, _south, sub_laplacian
 
 DATANORM = 0.1 * 0.1
@@ -169,17 +177,48 @@ def _refine(wx, wy, im1, im2, params: TwoFrameParams):
     return wx, wy
 
 
+def twoframe_key(device, params: TwoFrameParams, b: int, h: int, w: int):
+    """The cache key of one two-frame solve's graph: the device, the
+    params (a frozen dataclass, so hashable), the batch and image size."""
+    return ("twoframe", torch.device(device), params, b, h, w)
+
+
+def _refine_program(prog, wx, wy, im1, im2, params: TwoFrameParams):
+    """`_refine` as one segment of `prog` (a graphs.Program, or Eager):
+    the inputs go into its input slots, the segment writes the result into
+    its state slots. Returns the state's (wx, wy)."""
+    ins, st = prog.inputs, prog.state
+    ins.wx, ins.wy, ins.im1, ins.im2 = wx, wy, im1, im2
+
+    def refine():
+        st.wx, st.wy = _refine(ins.wx, ins.wy, ins.im1, ins.im2, params)
+
+    prog.run(("refine",), refine)
+    return st.wx, st.wy
+
+
 def variational_twoframe_batched(wx, wy, im1, im2,
                                  params: TwoFrameParams = TwoFrameParams(),
-                                 *, device=None):
+                                 *, device=None, _eager: bool = False):
     """Refine B flows (wx, wy) [B, H, W] between im1 and im2 [B, 3, H, W]
     (0..255) in one batched solve. Tensors or arrays; `device`: None = the
     device of `im1` if it is a tensor, else CUDA. Returns (wx, wy) tensors
-    on that device."""
+    on that device.
+
+    On CUDA the solve replays this host thread's cached CUDA graph of its
+    shape (module docstring), bitwise the eager solve; the CPU runs it
+    eagerly, and so does `_eager` (tests and chip_smoke.py only)."""
     device = device_of(im1, device)
-    with on_device(device):
-        return _refine(as_f32(wx, device), as_f32(wy, device),
-                       as_f32(im1, device), as_f32(im2, device), params)
+    wx, wy, im1, im2 = (as_f32(a, device) for a in (wx, wy, im1, im2))
+    if wx.dim() != 3:
+        raise ValueError(f"wx: expected [B, H, W], got {tuple(wx.shape)}")
+    key = twoframe_key(wx.device, params, *wx.shape)
+    graphed = not _eager and device.type == "cuda"
+    with on_device(device), graphs.running(key, device, graphed) as prog:
+        wx, wy = _refine_program(prog, wx, wy, im1, im2, params)
+        if not prog.graphed:
+            return wx, wy
+        return wx.clone(), wy.clone()
 
 
 def variational_twoframe(wx, wy, im1, im2,

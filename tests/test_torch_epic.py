@@ -6,6 +6,10 @@ XLA's float32 cbrt differs from it by about an ulp, which the test bounds
 and measures); the grid matcher's kept matches row for row on a textured
 pair with a known integer shift, and on a pair with flat regions every
 differing grid point a tie (its two costs within 1e-5 relative); the
+matcher's twin against JAX's compiled costs and the numpy model of its CUDA
+kernel (tests/match_model.py) against the twin, both directions, with a
+radius beyond half the image, points on the border, flat regions, exact
+ties and a batch split into chunks (labels equal except at ties); the
 distance transform's distances within 1e-5 relative and its labels
 identical except where the two competing seeds' distances tie within 1e-6
 relative, on the geometries of tests/test_epic.py (uniform cost, a wall,
@@ -16,6 +20,7 @@ median |dflow| <= 1e-4 px and >= 99.9 % of pixels within 1e-3 px; the
 parameter presets field by field. Inputs come from seeded numpy generators.
 """
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -32,6 +37,8 @@ from slowflow_tpu.epic import matching as jmatch
 from slowflow_tpu_torch import native
 from slowflow_tpu_torch.core import image
 from slowflow_tpu_torch.epic import distance, edges, interp, matching
+
+import match_model
 
 CPU = torch.device("cpu")
 
@@ -149,6 +156,100 @@ def test_grid_matches_batched_equals_per_pair():
         np.testing.assert_array_equal(
             both[i], matching.grid_matches(a[i], b[i], radius=4, device=CPU))
         np.testing.assert_array_equal(both[i], want[i])
+
+
+def _match_case(name):
+    """(g1, g2 [B, H, W] float32 luminance, ys, xs [B, P], radius, chunk):
+    a radius beyond half the image, points on every border row and column,
+    flat regions with many ties, exact ties on constant planes, and a batch
+    that the twin splits into chunks of one pair."""
+    rng = np.random.default_rng(11)
+    if name == "constant":
+        g = np.full((2, 18, 22), 0.5, np.float32)
+        ys, xs = np.mgrid[0:18:5, 0:22:7]
+        return g, g.copy(), ys.ravel(), xs.ravel(), 6, None
+    shape = (2, 3, 30, 36) if name != "chunked" else (3, 3, 26, 31)
+    base = _smooth(rng, shape)
+    if name == "flat":
+        base[..., 4:20, 3:22] = 90.0
+        base[..., 15:28, 20:34] = 200.0
+    im2 = np.roll(base, (1, -2), axis=(2, 3))
+    g1, g2 = (image.luminance(torch.tensor(a)).numpy() for a in (base, im2))
+    h, w = g1.shape[1:]
+    if name == "border":
+        ys = np.array([0, 0, 0, h - 1, h - 1, h - 1, 13, 13, 1, h - 2])
+        xs = np.array([0, w // 2, w - 1, 0, w // 2, w - 1, 0, w - 1, 1,
+                       w - 2])
+        return g1, g2, ys, xs, 5, None
+    ys, xs = np.mgrid[2:h:6, 3:w:7]
+    radius = {"wide_radius": 16, "flat": 5, "chunked": 4}[name]
+    return g1, g2, ys.ravel(), xs.ravel(), radius, \
+        1 if name == "chunked" else None
+
+
+def _jax_labels(g1, g2, ys, xs, radius, patch_r=4):
+    """k [B, P] of the JAX package's compiled costs, first index on ties."""
+    return np.stack([np.asarray(jnp.argmin(jmatch._match_costs(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(ys), jnp.asarray(xs),
+        radius, patch_r).reshape(len(ys), -1), axis=1))
+        for a, b in zip(g1, g2)])
+
+
+def _port_labels(g1, g2, ys, xs, radius, chunk, patch_r=4):
+    b = g1.shape[0]
+    pts = [torch.as_tensor(np.broadcast_to(a, (b, len(a))).copy())
+           for a in (ys, xs)]
+    with mock.patch.object(matching, "_CHUNK_ELEMENTS", chunk
+                           or matching._CHUNK_ELEMENTS), \
+            mock.patch.object(matching, "_best_displacement",
+                              wraps=matching._best_displacement) as twin:
+        dx, dy = matching._match_points(torch.tensor(g1), torch.tensor(g2),
+                                        *pts, radius, patch_r)
+    calls = twin.call_count
+    d = 2 * radius + 1
+    return ((dy + radius) * d + dx + radius).numpy(), calls
+
+
+@pytest.mark.parametrize("case", ["wide_radius", "border", "flat",
+                                  "constant", "chunked"])
+def test_matcher_twin_and_kernel_model_match_jax(case):
+    """The twin against JAX's `_match_costs` argmin, and the numpy model of
+    the CUDA kernel's arithmetic (tests/match_model.py) against the twin,
+    both directions, on the same float32 planes: labels equal wherever the
+    two displacements' float64 costs differ by more than 1e-5 relative,
+    and equal everywhere where the costs are exact (constant planes)."""
+    g1, g2, ys, xs, radius, chunk = _match_case(case)
+    b = g1.shape[0]
+    pts = np.broadcast_to(ys, (b, len(ys))), np.broadcast_to(xs, (b, len(xs)))
+    for a, c in ((g1, g2), (g2, g1)):
+        want = _jax_labels(a, c, ys, xs, radius)
+        got, calls = _port_labels(a, c, ys, xs, radius, chunk)
+        model = match_model.best_displacement(a, c, *pts, radius, 4)
+        assert calls == (b if chunk else 1)
+        for other in (want, model):
+            ties = match_model.differ_only_on_ties(a, c, *pts, got, other,
+                                                   radius, 4)
+            assert all(ok for _, ok in ties), ties
+            assert len(ties) <= got.size // 4
+        if case == "constant":
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(model, want)
+        elif case != "flat":
+            np.testing.assert_array_equal(got, want)
+
+
+def test_kernel_model_ties_take_the_first_index():
+    """Two displacements of exactly equal least cost: the model (as the
+    kernel's (cost, k) reduction) and the twin keep the first in k order."""
+    g = np.zeros((1, 12, 12), np.float32)
+    g2 = g.copy()
+    g[0, 5, 5] = g2[0, 4, 5] = g2[0, 6, 5] = 1.0      # dy = -1 and dy = +1
+    ys, xs = np.array([[5]]), np.array([[5]])
+    radius = 2
+    d = 2 * radius + 1
+    k_model = match_model.best_displacement(g, g2, ys, xs, radius, 0)
+    got, _ = _port_labels(g, g2, ys[0], xs[0], radius, None, patch_r=0)
+    assert k_model[0, 0] == got[0, 0] == (-1 + radius) * d + radius
 
 
 # ---------------------------------------------------- distance transform

@@ -18,6 +18,9 @@
   LAUNCHES, for the capturing thread only; replays add the record.
 - `run_sharded` runs each mesh position on the same host thread from call
   to call (the graphs are cached per thread).
+- With niter_outer = 0 on the fused-occlusion route the level (eager and
+  in its graph form) equals the route with the fusion off and leaves the
+  flow as it came.
 """
 import dataclasses
 import threading
@@ -196,3 +199,26 @@ def test_run_sharded_keeps_a_thread_per_position():
     again = mesh.run_sharded(cpus, ident, x)[0]
     assert torch.equal(first, again)
     assert len(set(first.tolist())) == 4
+
+
+@pytest.mark.parametrize("graph_form", [False, True],
+                         ids=["eager", "graph_form"])
+def test_no_outer_iteration_on_the_fused_occlusion_route(graph_form):
+    """niter_outer = 0 on the merged route with the occlusion step fused
+    into the first system's assembly: the alternation top solves no first
+    system (`first_system` is False), so the level equals the route with
+    the fusion off bitwise and leaves the flow as it came. (The JAX
+    package's fused route solves one system here; the C++ reference and
+    its unfused route solve none.)"""
+    args, p = _level_inputs("merged", 1)
+    p = dataclasses.replace(p, niter_outer=0)
+    assert p.route().fuse_occ and not tmf.first_system(p)
+    unfused = dataclasses.replace(p, fuse_occ=False)
+    assert not unfused.route().fuse_occ
+    level = _graph_form_level if graph_form else tmf.compute_one_level
+    got = level(*args, p=p)
+    want = tmf.compute_one_level(*args, p=unfused)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[0], args[0]) and torch.equal(got[1], args[1])
+    assert got[2].abs().sum() > 0          # the occlusion step still ran

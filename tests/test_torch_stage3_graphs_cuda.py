@@ -174,10 +174,13 @@ def test_capture_beside_a_launching_thread(cuda_device):
     errors = []
 
     def prefetch():
-        stream = torch.cuda.Stream(cuda_device)
-        x = torch.rand((512, 512), device=cuda_device)
         try:
+            stream = torch.cuda.Stream(cuda_device)
+            # a generator of its own: the default one belongs to a capture
+            # while it runs, and may not advance outside it
+            gen = torch.Generator(cuda_device).manual_seed(0)
             with torch.cuda.stream(stream):
+                x = torch.rand((512, 512), device=cuda_device, generator=gen)
                 while not stop.is_set():
                     x = (x @ x).tanh()
                     x.sum().item()

@@ -7,7 +7,11 @@ within 1e-4 px max; the sintel preset (5 outer iterations) within 3x the
 JAX package's own spread under a 1e-7 relative input perturbation (median,
 90th percentile and mean of |dflow|, plus 1e-4 px), as
 tests/test_torch_slice.py measures it; the batched entry equal to the
-single one; the presets field by field. Inputs come from a seeded numpy
+single one; the presets field by field. The graph form (the solve as one
+segment over `graphs.Slots`, run without capture as a replay would run it,
+three times over the same Slots) bitwise the eager `_refine` at B = 1 and 3
+with two presets; the cache key tells params, batch, size and device
+apart; the CPU never captures. Inputs come from a seeded numpy
 generator. The JAX warp takes its exact (non-banded) path at these sizes.
 """
 import dataclasses
@@ -19,7 +23,9 @@ import torch
 import jax.numpy as jnp
 
 from slowflow_tpu.variational import twoframe as jtf
+from slowflow_tpu_torch.variational import graphs
 from slowflow_tpu_torch.variational import twoframe as ttf
+from test_torch_stage3_graphs import _Uncaptured, graph_form
 
 H, W = 40, 52
 
@@ -141,3 +147,76 @@ def test_presets_match_jax():
             dataclasses.asdict(getattr(jtf.TwoFrameParams, name)())
     assert dataclasses.asdict(ttf.TwoFrameParams()) == \
         dataclasses.asdict(jtf.TwoFrameParams())
+
+
+# ------------------------------------------------------- the graph form
+@pytest.mark.parametrize("preset", ["sintel", "kitti"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_graph_form_equals_eager(b, preset):
+    """The solve as one segment over Slots, run three times over the same
+    Slots (as replays reuse them) on two inputs: bitwise the eager
+    `_refine` each time, and a fresh copy returned each time."""
+    p = getattr(ttf.TwoFrameParams, preset)()
+    pairs = [[torch.tensor(a) for a in _pair(b=b, seed=s)] for s in (5, 6)]
+    want = [ttf._refine(*args, p) for args in pairs]
+    with graph_form() as progs:
+        outs = [ttf.variational_twoframe_batched(*pairs[i], p, device="cpu")
+                for i in (0, 1, 0)]
+    (key, prog), = progs.items()
+    assert key == ttf.twoframe_key("cpu", p, b, H, W)
+    assert prog.segments == [("refine",)] * 3
+    for got, i in zip(outs, (0, 1, 0)):
+        for g, w in zip(got, want[i]):
+            assert torch.equal(g, w)
+    assert outs[0][0] is not outs[2][0]
+    assert outs[0][0].data_ptr() != prog.state.wx.data_ptr()
+
+
+def test_graph_form_without_outer_iterations_copies_the_input():
+    """niter_outer = 0 leaves the flow as it came, in the state's own
+    memory."""
+    wx, wy, im1, im2 = (torch.tensor(a) for a in _pair(b=2))
+    p = ttf.TwoFrameParams(niter_outer=0)
+    prog = _Uncaptured()
+    gx, gy = ttf._refine_program(prog, wx, wy, im1, im2, p)
+    assert torch.equal(gx, wx) and torch.equal(gy, wy)
+    assert gx.data_ptr() != wx.data_ptr() != prog.inputs.wx.data_ptr()
+
+
+def _other(value):
+    return value + 1 if isinstance(value, int) else value * 1.5 + 0.25
+
+
+def test_cache_key_tells_inputs_apart():
+    p = ttf.TwoFrameParams.sintel()
+    key = ttf.twoframe_key("cuda:0", p, 40, 270, 480)
+    assert key == ttf.twoframe_key(torch.device("cuda:0"),
+                                   dataclasses.replace(p), 40, 270, 480)
+    for f in dataclasses.fields(p):
+        q = dataclasses.replace(p, **{f.name: _other(getattr(p, f.name))})
+        assert ttf.twoframe_key("cuda:0", q, 40, 270, 480) != key, f.name
+    for args in (("cuda:1", p, 40, 270, 480), ("cuda:0", p, 1, 270, 480),
+                 ("cuda:0", p, 40, 271, 480), ("cuda:0", p, 40, 270, 481),
+                 ("cpu", p, 40, 270, 480)):
+        assert ttf.twoframe_key(*args) != key
+
+
+def test_cpu_never_captures():
+    graphs.clear()
+    graphs.reset_stats()
+    wx, wy, im1, im2 = _pair(b=2)
+    got = ttf.variational_twoframe_batched(
+        wx, wy, im1, im2, ttf.TwoFrameParams(niter_outer=1), device="cpu")
+    want = ttf._refine(*(torch.tensor(a) for a in (wx, wy, im1, im2)),
+                       ttf.TwoFrameParams(niter_outer=1))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert graphs.STATS == {"captures": 0, "replays": 0, "capture_s": 0.0}
+    assert graphs.cached_keys() == []
+
+
+def test_batched_entry_takes_three_dims():
+    wx, wy, im1, im2 = _pair(b=1)
+    with pytest.raises(ValueError, match="B, H, W"):
+        ttf.variational_twoframe_batched(wx[0], wy[0], im1[0], im2[0],
+                                         device="cpu")
