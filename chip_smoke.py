@@ -45,8 +45,9 @@ Phases (any failure makes the script exit non-zero without the final line):
      80 and a scene of flat grey blocks (radius 16): labels of both
      directions equal except where the two displacements' costs (float64,
      on the card) tie within 1e-5 relative, kept matches equal on the
-     textured scenes, time, device time, launches, bound, band plan,
-     registers and blocks per SM;
+     textured scenes, time, device time, launches, bound, band plan (with
+     the displacements a thread, NX), registers and blocks per SM, and the
+     blocks that took the kernel's sentinel path and its general path;
   3. the slice: variational_mt_batched at the bench configuration (bench
      scene of slowflow_tpu_torch/bench_scene.py, 5 levels, 10 alternations x 10 outer x 30 SOR sweeps, occlusion
      reasoning, batch 4) on the merged route and on the stack route with the
@@ -853,7 +854,7 @@ def matcher_vs_twin():
     stage 1's, a radius above 64 and a flat scene: labels both directions
     (equal but at ties, float64 costs on the card), kept matches, time,
     device time, launches, bound, band plan, registers and blocks per
-    SM."""
+    SM, and the blocks on the kernel's sentinel and general paths."""
     import ctypes
 
     import torch
@@ -879,12 +880,14 @@ def matcher_vs_twin():
         ys, xs = (torch.as_tensor(a.ravel(), device=dev).expand(b, -1)
                   .contiguous() for a in (grid_y, grid_x))
         d = 2 * r + 1
+        matching.grid_match_paths()      # zero the path counts
         kf = matching.grid_match(g1, g2, ys, xs, r, p)
         tf = twin(g1, g2, ys, xs, r, p)
         y2 = (ys + kf // d - r).clamp(0, h - 1)
         x2 = (xs + kf % d - r).clamp(0, w - 1)
         kb = matching.grid_match(g2, g1, y2, x2, r, p)
         tb = twin(g2, g1, y2, x2, r, p)
+        paths = matching.grid_match_paths()   # both directions' blocks
         torch.cuda.synchronize()
         differ, not_ties, cost_diff = 0, 0, 0.0
         tie_points = set()
@@ -933,11 +936,11 @@ def matcher_vs_twin():
         # record of one of two back-to-back launches of this kernel)
         prof = [_one_call_profile(fn) for fn in (kern_fwd, kern_bwd)]
 
-        plan = (ctypes.c_longlong * 5)()
+        plan = (ctypes.c_longlong * 6)()
         kernels.check(lib.sf_grid_match_plan(h, w, r, p, plan),
                       "sf_grid_match_plan")
         occ = (ctypes.c_int * 3)()
-        kernels.check(lib.sf_grid_match_occupancy(plan[4], occ),
+        kernels.check(lib.sf_grid_match_occupancy(plan[4], p, occ),
                       "sf_grid_match_occupancy")
         entry = dict(scene=name, shape=[b, h, w], radius=r, patch_r=p,
                      points=ys.shape[1], labels_differ=differ,
@@ -955,9 +958,11 @@ def matcher_vs_twin():
                      device_ms=sum(q["device_ms"] for q in prof),
                      profile_counts=[q["profile_counts"] for q in prof],
                      plan=dict(zip(("band", "bands", "window_rows",
-                                    "window_cols", "smem_bytes"), plan)),
+                                    "window_pitch", "smem_bytes", "nx"),
+                                   plan)),
                      blocks_per_sm=occ[0], registers=occ[1],
-                     spill_bytes=occ[2])
+                     spill_bytes=occ[2], sentinel_blocks=paths["sentinel"],
+                     general_blocks=paths["general"])
         RECORD.setdefault("kernels_vs_twins", {}).setdefault(
             "grid_match", []).append(entry)
         what = f"matcher {name} {b}x{h}x{w} r={r}"
@@ -971,13 +976,17 @@ def matcher_vs_twin():
               f"ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}), "
               f"{entry['launches_per_call']} launches; plan "
               f"{entry['plan']}, {occ[0]} blocks/SM, {occ[1]} registers, "
-              f"{occ[2]} B spilled")
+              f"{occ[2]} B spilled; blocks on the sentinel path "
+              f"{paths['sentinel']}, on the general path {paths['general']}")
         check(not_ties == 0, f"{what}: labels equal to the twin's but at "
               f"ties ({differ} differ, {not_ties} by more than "
               f"{MATCH_TIE_REL} relative)")
         check(entry["launches_per_call"] == 2,
               f"{what}: {entry['launches_per_call']} CUDA launches for the "
               "two directions (one each)")
+        check(paths["sentinel"] + paths["general"] == 2 * b * ys.shape[1],
+              f"{what}: {paths} blocks on the two paths for "
+              f"{2 * b * ys.shape[1]} points")
         if textured:
             check(entry["kept_differ_elsewhere"] == 0,
                   f"{what}: kept matches equal to the twin's but where a "
@@ -2968,7 +2977,8 @@ def main() -> int:
             "grid_match", 0),
         "shapes": {r["scene"]: {k: r.get(k) for k in (
             "shape", "radius", "ms", "device_ms", "plain_ms", "bound_ms",
-            "labels_differ", "labels_differ_not_ties")}
+            "labels_differ", "labels_differ_not_ties", "registers",
+            "blocks_per_sm", "sentinel_blocks", "general_blocks")}
             for r in match_rows}})
     # K5 on stage 1's path: launches of the stage-1 run, time at B = 40
     k5_b40 = [r for r in kv.get("sor", []) if r["shape"] == [40, 270, 480]]

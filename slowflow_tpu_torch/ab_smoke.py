@@ -1,9 +1,11 @@
 """Run chip_smoke.py, the bench-config slice alone, or K1 / K2 / K4 / K5
-alone, in turns on a parent tree and on this tree, on one card.
+and the grid matcher alone, in turns on a parent tree and on this tree, on
+one card.
 
     python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR [--rounds N]
     python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR --slice REPS [--rounds N]
     python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR --kernels REPS [--rounds N]
+    python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR --phases NAME [...]
 
 PARENT_DIR holds an unpacked tree of the commit to compare with (for
 example `git archive HEAD | tar -x -C _archive/parent`, a directory that
@@ -32,9 +34,24 @@ slowflow_tpu_torch and times, on the same seeded inputs at 4 x 270 x 480
 (K4: the 4 x 5 x 3 window), K1 `solve_step` (smoothing 1, zero start,
 change sums, 30 sweeps), K2 `warp_assemble` (`assembly` and `occ_assembly`,
 zero du / dv), K4 `warp_stack` (a bench-like flow) and K5
-`sor_coupled_rb_pallas` (30 sweeps), each by CUDA events over REPS calls
-after a warm-up and by the profiler's device time
-(`kernel_variants.device_ms`); the last line holds the medians per tree.
+`sor_coupled_rb_pallas` (30 sweeps), and the grid matcher
+(`epic.matching.grid_match`, both directions, patch radius 4, the grid of
+step 8) at chip_smoke's phase 5 shape (4 x 270 x 480, radius 50) and
+stage 1's (40 x 270 x 480, radius 32) on the scene of this tree's
+bench_scene.py, each by CUDA events over REPS calls after a warm-up and by
+the profiler's device time (10 calls, a capture retaken until it holds
+every launch: one a call, two for the matcher's two directions); the
+matcher's entries also carry a digest of both directions' labels, which
+must agree between the trees. The last line holds the medians per tree.
+
+With --phases, each turn is a fresh process that imports that tree's
+chip_smoke.py and runs its kernel build and then the named phases (any of
+its phase functions that both trees have, such as cli_stage2_epic and
+stage1), and prints one line per run with the phases' records: for
+cli_stage2_epic the wall and solve per batch, the matcher's seconds and
+the matches kept per jet with and without the EPIC init, for stage1 the
+wall, the quantile and the `af.*` seconds; every record is kept in
+OUT_DIR/ab/phases_summary.json.
 """
 from __future__ import annotations
 
@@ -162,12 +179,18 @@ print(json.dumps(dict(walls=walls, median_s=statistics.median(walls),
 
 
 KERNELS = """
-import json, sys
+import hashlib, importlib.util, json, sys
 sys.path.insert(0, {tree!r})
 import numpy as np, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+spec = importlib.util.spec_from_file_location("scene", {scene!r})
+scene = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(scene)
+from slowflow_tpu_torch.core.image import luminance
+from slowflow_tpu_torch.epic.matching import grid_match
 from slowflow_tpu_torch.core.solver_pallas import sor_coupled_rb_pallas
 from slowflow_tpu_torch.core.warp_shift import warp_stack
-from slowflow_tpu_torch.kernel_variants import device_ms
 from slowflow_tpu_torch.variational.fused_solve import solve_step
 from slowflow_tpu_torch.variational.fused_warp import warp_assemble
 from slowflow_tpu_torch.variational.params import MultiFrameParams
@@ -199,6 +222,39 @@ calls = {{
     "K5 sor": lambda: sor_coupled_rb_pallas(
         du, dv, a11, a12, a22, b1, b2, wh, wv, iterations=30, omega=1.9),
 }}
+digests = {{}}
+def matcher(nb, r):
+    seq = np.round(np.stack([scene.moving_sequence(4, h, w, 1.5 + 0.2 * s,
+                                                   -0.8, seed=s)[2:4]
+                             for s in range(nb)]))
+    pairs = torch.tensor(seq, dtype=torch.float32, device=dev)
+    g1, g2 = (luminance(pairs[:, i].contiguous()) for i in (0, 1))
+    gy, gx = np.mgrid[4:h:8, 4:w:8]
+    ys, xs = (torch.as_tensor(a.ravel(), device=dev).expand(nb, -1)
+              .contiguous() for a in (gy, gx))
+    d = 2 * r + 1
+    kf = grid_match(g1, g2, ys, xs, r, 4)
+    y2 = (ys + kf // d - r).clamp(0, h - 1)
+    x2 = (xs + kf % d - r).clamp(0, w - 1)
+    kb = grid_match(g2, g1, y2, x2, r, 4)
+    digests[f"{{nb}}x{{h}}x{{w}} r{{r}}"] = hashlib.sha256(
+        torch.cat([kf, kb]).cpu().numpy().tobytes()).hexdigest()[:16]
+    return lambda: (grid_match(g1, g2, ys, xs, r, 4),
+                    grid_match(g2, g1, y2, x2, r, 4))
+calls["K7 grid_match 4x270x480 r50"] = matcher(4, 50)
+calls["K7 grid_match 40x270x480 r32"] = matcher(40, 32)
+def device_ms(fn, launches, reps=10):
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(evs) >= reps * launches:
+            return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
+    raise RuntimeError(f"{{len(evs)}} kernel records for {{reps}} calls")
 out = {{}}
 for name, fn in calls.items():
     fn()
@@ -210,21 +266,55 @@ for name, fn in calls.items():
     end.record()
     torch.cuda.synchronize()
     out[name] = dict(ms=start.elapsed_time(end) / {reps},
-                     device_ms=device_ms(fn))
+                     device_ms=device_ms(fn, 2 if "K7" in name else 1))
+out["labels"] = digests
 print(json.dumps(out))
 """
 
 
+PHASES = """
+import json, sys
+sys.path.insert(0, {tree!r})
+import chip_smoke as c
+c.OUT_DIR.mkdir(exist_ok=True)
+for name in ("build", *{phases!r}):
+    c.phase(getattr(c, name))
+print(json.dumps(dict(failures=c.FAILURES, record={{
+    name: c.RECORD.get(name) for name in {phases!r}}}), default=str))
+"""
+
+
+def _phase_line(result: dict) -> dict:
+    """The numbers of a --phases run that a parent / change line shows."""
+    rec = result.get("record", {})
+    out = {}
+    for dm, r in (rec.get("cli_stage2_epic") or {}).items():
+        ph = r.get("phases", {})
+        out[dm] = dict(wall_per_batch_s=r.get("wall_per_batch_s"),
+                       solve_per_batch_s=r.get("solve_per_batch_s"),
+                       matches_s=ph.get("sf.matches", [None])[0],
+                       init_wait_s=ph.get("sf.init_wait", [None])[0],
+                       matches_kept=r.get("matches_kept"),
+                       flow_recovery_err_px=r.get("flow_recovery_err_px"))
+    st = rec.get("stage1")
+    if st:
+        out["stage1"] = dict(wall_s=st.get("wall_s"), quantil=st.get(
+            "quantil"), **{k: v[0] for k, v in st.get("phases", {}).items()
+                           if k.startswith("af.")})
+    return dict(failures=result.get("failures"), **out)
+
+
 def run_slice(tree: Path, tag: str, n: int, reps: int,
-              template: str = SLICE) -> dict:
+              template: str = SLICE, show: bool = True, **fields) -> dict:
     code = template.format(tree=str(tree), reps=reps, scene=str(
-        HERE / "slowflow_tpu_torch" / "bench_scene.py"))
+        HERE / "slowflow_tpu_torch" / "bench_scene.py"), **fields)
     proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
                           capture_output=True, text=True, timeout=900)
     result = json.loads(proc.stdout.strip().splitlines()[-1]) \
         if proc.returncode == 0 else {"stderr": proc.stderr[-2000:]}
     line = dict(run=n, tree=tag, rc=proc.returncode, **result)
-    print(json.dumps(line), flush=True)
+    if show:
+        print(json.dumps(line), flush=True)
     return line
 
 
@@ -249,9 +339,12 @@ def main(argv=None) -> int:
     ap.add_argument("--slice", type=int, default=0, metavar="REPS",
                     help="time the merged slice REPS times per turn instead "
                          "of running chip_smoke.py")
+    ap.add_argument("--phases", nargs="+", metavar="NAME",
+                    help="run these chip_smoke.py phases per turn instead "
+                         "of the whole script")
     ap.add_argument("--kernels", type=int, default=0, metavar="REPS",
-                    help="time K1 / K2 / K4 / K5 over REPS calls per turn "
-                         "instead of running chip_smoke.py")
+                    help="time K1 / K2 / K4 / K5 and the matcher over REPS "
+                         "calls per turn instead of running chip_smoke.py")
     args = ap.parse_args(argv)
     out = _out_dir() / "ab"
     out.mkdir(parents=True, exist_ok=True)
@@ -259,11 +352,18 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    lines = []
+    lines, records = [], []
     for r in range(args.rounds):
         for tag in ("parent", "change", "change", "parent"):
             tree = args.parent.resolve() if tag == "parent" else HERE
-            if args.kernels:
+            if args.phases:
+                full = run_slice(tree, tag, len(lines), 0, PHASES,
+                                 show=False, phases=tuple(args.phases))
+                records.append(full)
+                lines.append(dict(run=full["run"], tree=tag, rc=full["rc"],
+                                  **_phase_line(full)))
+                print(json.dumps(lines[-1]), flush=True)
+            elif args.kernels:
                 lines.append(run_slice(tree, tag, len(lines), args.kernels,
                                        KERNELS))
             elif args.slice:
@@ -276,11 +376,18 @@ def main(argv=None) -> int:
             line[k][m] for line in lines if line["tree"] == tree)
             for m in ("ms", "device_ms")} for k in lines[0] if " " in k}
             for tree in ("parent", "change")}
+        record["labels_agree"] = len({json.dumps(line.get("labels"))
+                                      for line in lines}) == 1
         print(json.dumps(record["median"]))
-    name = "kernels_summary.json" if args.kernels else \
+        print(f"matcher labels equal in every run: {record['labels_agree']}")
+    if args.phases:
+        record["records"] = records
+    name = "phases_summary.json" if args.phases else \
+        "kernels_summary.json" if args.kernels else \
         "slice_summary.json" if args.slice else "summary.json"
     (out / name).write_text(json.dumps(record, indent=1))
-    return 0 if all(line["rc"] == 0 for line in lines) else 1
+    ok = all(line["rc"] == 0 and not line.get("failures") for line in lines)
+    return 0 if ok and record.get("labels_agree", True) else 1
 
 
 if __name__ == "__main__":

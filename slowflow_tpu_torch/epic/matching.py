@@ -11,8 +11,11 @@ is at most `fb_threshold` px.
 
 On CUDA tensors the search is one launch of the hand-written kernel
 csrc/grid_match.cu per direction (`grid_match`): a block per point holds
-the point's search window in shared memory and computes costs at the points
-only, the counterpart of the JAX package's compiled `_grid_match_core`. On
+the point's search window in shared memory, padded with -1e3 outside the
+image, and each thread sums the costs of several displacements at once,
+bitwise as the definition orders them (`grid_match_paths` counts the blocks
+that took the padded path and the general one). It is the counterpart of
+the JAX package's compiled `_grid_match_core`. On
 CPU tensors it is the plain twin `_best_displacement`, which loops over dy
 on the host and vectorizes over dx and the batch: per dy one
 [B, H, 2r+1, W] cost stack, its horizontal patch sum, then the vertical
@@ -20,6 +23,8 @@ patch sum gathered at the points only, and a running minimum that keeps
 the first index on ties; `_CHUNK_ELEMENTS` bounds its stack's size.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -108,6 +113,15 @@ def grid_match(g1, g2, ys, xs, radius: int, patch_r: int):
     kernels.check(err, "grid_match")
     kernels.count_launch("grid_match")
     return out
+
+
+def grid_match_paths() -> dict:
+    """Blocks of the kernel on the current CUDA device that took the
+    sentinel path (every patch value >= 0) and the general tap loop since
+    the last call, which zeroes both counts. Waits for the device."""
+    out = (ctypes.c_longlong * 2)()
+    kernels.check(kernels.load().sf_grid_match_paths(out), "grid_match_paths")
+    return {"sentinel": out[0], "general": out[1]}
 
 
 def _match_points(g1, g2, ys, xs, radius: int, patch_r: int):

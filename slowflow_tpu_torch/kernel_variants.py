@@ -1,7 +1,7 @@
-"""Where the time of K1-K4 goes: textual variants of their sources, built
-and timed beside the real kernels on one card.
+"""Where the time of K1-K4 and the grid matcher goes: textual variants of
+their sources, built and timed beside the real kernels on one card.
 
-    python3 -m slowflow_tpu_torch.kernel_variants
+    python3 -m slowflow_tpu_torch.kernel_variants [--only SOURCE ...]
 
 Measurement script; the port never calls it. Each variant is the kernel's
 sources in csrc/ with named substitutions (the script fails if one no
@@ -34,11 +34,31 @@ on K6's planes:
   pix2, pix4_ty4    2 pixels a thread (8 x 64 tiles); 4 (4 x 128 tiles)
   runtime_channels  the channel count as a runtime loop bound (K6's
                     warp_bilinear entry with C != 3)
+The grid matcher (both directions at chip_smoke's phase 5 shape, 4 x 270
+x 480 radius 50, and stage 1's, 40 x 270 x 480 radius 32, on its scenes;
+`labels_equal`: the forward labels equal the built kernel's):
+  kernel        csrc/grid_match.cu as built (NX = 8 displacements a thread,
+                256 threads a block, float4 reads, window by cp.async)
+  nx4, nx1      4 and 1 displacements a thread (nx1: scalar reads)
+  nt128         128 threads a block
+  general       every block on the general tap loop (the bound tests per
+                tap, as for a patch with a negative value)
+  clipped_all   every block on the tap loop with the block-uniform cut at
+                the last patch column (the path of points near the left or
+                right edge)
+  runtime_taps  the runtime-p instance at p = 4 (taps in a runtime loop,
+                scalar reads, odd pitch)
+  scalar_loads  window and patch rows read one float at a time
+  sync_staging  the window staged by plain loads and stores, not cp.async
+  stage_only    the patch and window staging and the reduction, no
+                displacement scanned (labels wrong: isolates the staging)
+`--only grid_match.cu` builds and times one source's variants alone.
 Prints one JSON line per measurement and writes kernel_variants.json to
 chip_smoke.py's output directory.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import shutil
@@ -64,6 +84,23 @@ K3_BUILD = """            build_pair(pairs + pair * PAIR_FLOATS, slot(frame_a(s,
                        slot(frame_b(s, pair)), tid);"""
 K3_OFFSET = """      offset(s);\n"""
 K4_CHANNELS = "return (int)(C == 3 ? launch<3>("
+K7_PATH = "const bool general = __syncthreads_or(neg);"
+K7_SCAN = """    if (general)
+      scan_band<Q, GENERAL>(s, dy0, dy1, r, best, best_k);
+    else if (Q > 0 && s.nq == Q)
+      scan_band<Q, UNROLLED>(s, dy0, dy1, r, best, best_k);
+    else if (Q > 0)
+      scan_band<Q, CLIPPED>(s, dy0, dy1, r, best, best_k);
+    else
+      scan_band<Q, RUNTIME>(s, dy0, dy1, r, best, best_k);"""
+K7_NX = "constexpr int NX = 8;"
+K7_VEC = "constexpr bool VEC = NX % 4 == 0;"
+K7_STAGE = """        if (gx >= 0 && gx < W)
+          sf::cp_async4(dst + c, src + gx);
+        else
+          dst[c] = SENTINEL;"""
+K7_INSTANCE = ("2 * p + 1 == CLI_Q ? grid_match_kernel<CLI_Q> : "
+               "grid_match_kernel<0>")
 
 # source built -> variant -> file -> {old: new}
 VARIANTS = {
@@ -94,19 +131,42 @@ VARIANTS = {
         "runtime_channels": {"warp_stack.cu": {
             K4_CHANNELS: K4_CHANNELS.replace("C == 3", "false")}},
     },
+    "grid_match.cu": {
+        "nx4": {"grid_match.cu": {K7_NX: K7_NX.replace("8", "4")}},
+        "nx1": {"grid_match.cu": {K7_NX: K7_NX.replace("8", "1")}},
+        "nt128": {"grid_match.cu": {"constexpr int NT = 256;":
+                                    "constexpr int NT = 128;"}},
+        "general": {"grid_match.cu": {K7_PATH: K7_PATH.replace(
+            "(neg)", "(neg) | true")}},
+        "clipped_all": {"grid_match.cu": {
+            "else if (Q > 0 && s.nq == Q)": "else if (false)"}},
+        "runtime_taps": {"grid_match.cu": {
+            K7_INSTANCE: "grid_match_kernel<0>",
+            "if (q == CLI_Q) {": "if (false) {"}},
+        "scalar_loads": {"grid_match.cu": {K7_VEC: K7_VEC.replace(
+            "NX % 4 == 0", "false")}},
+        "sync_staging": {"grid_match.cu": {
+            K7_STAGE: "        dst[c] = gx >= 0 && gx < W ? src[gx] "
+                      ": SENTINEL;",
+            "    sf::cp_async_wait_all();\n": ""}},
+        "stage_only": {"grid_match.cu": {K7_SCAN: "    (void)general;"}},
+    },
 }
+K7_SHAPES = (("stage2", 4, 50), ("stage1", 40, 32))   # chip_smoke's scenes
 K3_MODES = (("assembly", True), ("occ", True), ("occ_assembly", True))
 K1_SHAPES = ((4, 270, 480), (4, 176, 314), (4, 51, 90))
 
 
-def build_variants() -> dict:
+def build_variants(only=None) -> dict:
     """{(source, variant): ctypes library}; the real kernels under
-    'kernel'."""
+    'kernel'. `only`: the sources to build variants of (default all)."""
     nvcc = kernels._nvcc()
     root = kernels.BUILD_DIR / "variants"
     shutil.rmtree(root, ignore_errors=True)
     jobs = {}
-    for src, variants in VARIANTS.items():
+    chosen = {src: v for src, v in VARIANTS.items()
+              if only is None or src in only}
+    for src, variants in chosen.items():
         for name, files in variants.items():
             d = root / f"{src[:-3]}_{name}"
             d.mkdir(parents=True)
@@ -125,14 +185,14 @@ def build_variants() -> dict:
                 [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", str(so),
                  str(d / src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True))
-    libs = {(src, "kernel"): kernels.load() for src in VARIANTS}
+    libs = {(src, "kernel"): kernels.load() for src in chosen}
     for key, (so, proc) in jobs.items():
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{err}")
         lib = ctypes.CDLL(str(so))
         for fn in ("sf_solve_step", "sf_solve_plan", "sf_warp_assemble",
-                   "sf_fused_data", "sf_warp_stack"):
+                   "sf_fused_data", "sf_warp_stack", "sf_grid_match"):
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = kernels._SIGNATURES[fn]
                 getattr(lib, fn).restype = ctypes.c_int
@@ -140,11 +200,12 @@ def build_variants() -> dict:
     return libs
 
 
-def device_ms(fn, reps: int = 10, attempts: int = 5) -> float:
-    """Mean device time of `fn` over `reps` calls. A profiler capture now
-    and then holds no kernel record (chip_smoke._one_call_profile), so a
-    capture without `reps` launches is taken again, at most `attempts`
-    times."""
+def device_ms(fn, reps: int = 10, attempts: int = 5,
+              launches: int = 1) -> float:
+    """Mean device time of `fn` over `reps` calls of `launches` kernels
+    each. A profiler capture now and then holds no kernel record, or not
+    all of them (chip_smoke._one_call_profile), so a capture without
+    `reps * launches` records is taken again, at most `attempts` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -156,10 +217,10 @@ def device_ms(fn, reps: int = 10, attempts: int = 5) -> float:
                 fn()
             torch.cuda.synchronize()
         evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if len(evs) >= reps:
+        if len(evs) >= reps * launches:
             return sum(e.time_range.elapsed_us() for e in evs) / reps / 1e3
     raise RuntimeError(f"the profiler saw {len(evs)} kernels for {reps} "
-                       f"calls in each of {attempts} captures")
+                       f"calls of {launches} in each of {attempts} captures")
 
 
 def _k1(lib, b, h, w, iterations, dev):
@@ -275,6 +336,41 @@ def _k4(lib, dev, with_mask, identity):
     return device_ms(call)
 
 
+def _k7(lib, dev, scene, b, radius) -> dict:
+    """Both directions of the grid matcher through `lib` on chip_smoke's
+    `scene` pairs (b x 270 x 480, patch radius 4, the grid of step 8), the
+    backward points from the built kernel's forward labels."""
+    from chip_smoke import _match_pairs
+
+    from .core.image import luminance
+    from .epic import matching
+
+    h, w, p, d = 270, 480, 4, 2 * radius + 1
+    pairs = _match_pairs(scene, b, h, w, dev)
+    g1, g2 = (luminance(pairs[:, i].contiguous()) for i in (0, 1))
+    gy, gx = np.mgrid[4:h:8, 4:w:8]
+    ys, xs = (torch.as_tensor(a.ravel(), device=dev).expand(b, -1)
+              .contiguous() for a in (gy, gx))
+    k = matching.grid_match(g1, g2, ys, xs, radius, p)
+    y2 = (ys + k // d - radius).clamp(0, h - 1)
+    x2 = (xs + k % d - radius).clamp(0, w - 1)
+    out = torch.empty_like(ys)
+    ptr, stream = kernels.ptr, kernels.stream_ptr(dev)
+
+    def direction(a, c, y, x):
+        kernels.check(lib.sf_grid_match(
+            ptr(a), ptr(c), ptr(y), ptr(x), ptr(out), b, h, w, ys.shape[1],
+            radius, p, stream), "sf_grid_match")
+
+    direction(g1, g2, ys, xs)
+    labels_equal = bool(torch.equal(out, k))
+
+    def call():
+        direction(g1, g2, ys, xs)
+        direction(g2, g1, y2, x2)
+    return dict(ms=device_ms(call, launches=2), labels_equal=labels_equal)
+
+
 def _grid_sample(dev) -> float:
     """grid_sample's device time on the bench window, every frame warped
     (chip_smoke's yardstick)."""
@@ -286,7 +382,11 @@ def _grid_sample(dev) -> float:
                      [float(k - f // 2) for k in range(f)])["library_device_ms"]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", nargs="+", choices=sorted(VARIANTS),
+                    help="time these sources' variants alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA GPU", file=sys.stderr)
         return 2
@@ -295,7 +395,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
-    libs = build_variants()
+    libs = build_variants(args.only)
     rows = []
     bench = (4, 270, 480)
     for (src, name), lib in sorted(libs.items()):
@@ -309,6 +409,11 @@ def main() -> int:
         elif src == "warp_assemble.cu":
             new.append(dict(kernel="K2 assembly zero_duv", variant=name,
                             shape=bench, ms=_k2(lib, dev)))
+        elif src == "grid_match.cu":
+            new += [dict(kernel=f"K7 grid_match {scene} both directions",
+                         variant=name, shape=(b, 270, 480), radius=radius,
+                         **_k7(lib, dev, scene, b, radius))
+                    for scene, b, radius in K7_SHAPES]
         elif src == "fused_data.cu":
             new += [dict(kernel=f"K3 {mode} zero_duv={zero_duv}",
                          variant=name, shape=bench, ms=_k3(lib, dev, mode))

@@ -65,10 +65,12 @@ _SIGNATURES = {
     "sf_sor_coupled_rb": [_P] * 12 + [_L, _P] + [_I] * 4 + [_F, _P],
     # g1, g2, ys, xs, out, B, H, W, P, radius, patch_r, stream
     "sf_grid_match": [_P] * 5 + [_I] * 6 + [_P],
-    # H, W, radius, patch_r, out (5 int64: the matcher's band plan)
+    # H, W, radius, patch_r, out (6 int64: the matcher's band plan)
     "sf_grid_match_plan": [_I] * 4 + [_P],
-    # smem, out (3 int: blocks per SM, registers, spill bytes)
-    "sf_grid_match_occupancy": [_L, _P],
+    # smem, patch_r, out (3 int: blocks per SM, registers, spill bytes)
+    "sf_grid_match_occupancy": [_L, _I, _P],
+    # out (2 int64: blocks on the sentinel path, on the general path)
+    "sf_grid_match_paths": [_P],
 }
 
 # launches of each kernel wrapper; read and reset by callers that must show

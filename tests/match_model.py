@@ -7,12 +7,21 @@ row's taps left to right into a row sum, the row sums in turn), one
 float32 operation at a time over the displacements, and the first index of
 least cost is kept, which is the kernel's lexicographic (cost, k) minimum.
 The kernel has no multiply to contract, so its labels equal these.
+
+`point_costs` follows the definition (a tap displaced out of the image
+reads 0 and adds 1e3); `point_costs_padded` follows the kernel's sentinel
+path: the search window padded with -1e3 and the patch bounds fixed per
+point, so a tap is |a - v| and nothing else. For planes >= 0 the two agree
+bit for bit (float32 |a + 1e3| is a + 1e3 rounded once, as |a - 0| + 1e3
+is); the kernel takes its general loop for a point whose patch holds a
+negative value.
 """
 from __future__ import annotations
 
 import numpy as np
 
 OUTSIDE = np.float32(1e3)
+SENTINEL = -OUTSIDE
 
 
 def point_costs(g1, g2, y: int, x: int, radius: int, patch_r: int):
@@ -41,6 +50,32 @@ def point_costs(g1, g2, y: int, x: int, radius: int, patch_r: int):
             t = np.abs(np.float32(g1[yy, xx]) - g2v.astype(np.float32))
             t = np.where(inside, t, t + OUTSIDE).astype(np.float32)
             rs = (rs + t).astype(np.float32)
+        cost = (cost + rs).astype(np.float32)
+    return cost
+
+
+def point_costs_padded(g1, g2, y: int, x: int, radius: int, patch_r: int):
+    """`point_costs` as the kernel's sentinel path sums them: the patch rows
+    and columns inside the image fixed once, the search window of g2
+    staged with -1e3 outside the image, each tap |a - v|."""
+    h, w = g1.shape
+    r, d = radius, 2 * radius + 1
+    py_lo, py_hi = max(-patch_r, -y), min(patch_r, h - 1 - y)
+    px_lo, px_hi = max(-patch_r, -x), min(patch_r, w - 1 - x)
+    rows = np.arange(y + py_lo - r, y + py_hi + r + 1)
+    cols = np.arange(x + px_lo - r, x + px_hi + r + 1)
+    win = np.full((len(rows), len(cols)), SENTINEL, np.float32)
+    rin = (rows >= 0) & (rows < h)
+    cin = (cols >= 0) & (cols < w)
+    win[np.ix_(rin, cin)] = g2[np.ix_(rows[rin], cols[cin])]
+    dyi, dxi = np.divmod(np.arange(d * d), d)
+    cost = np.zeros(d * d, np.float32)
+    for py in range(py_lo, py_hi + 1):
+        rs = np.zeros(d * d, np.float32)
+        for px in range(px_lo, px_hi + 1):
+            v = win[py - py_lo + dyi, px - px_lo + dxi]
+            rs = (rs + np.abs(np.float32(g1[y + py, x + px]) - v)).astype(
+                np.float32)
         cost = (cost + rs).astype(np.float32)
     return cost
 

@@ -27,6 +27,17 @@ P = from_jax_params(JP)
 B, H, W = 2, 40, 56
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the twins, so that no reduction of theirs
+    can split by the worker's thread count (the xdist workers share the
+    host's cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b):
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)

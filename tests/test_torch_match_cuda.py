@@ -5,10 +5,14 @@ solve's CUDA graph on the card.
   card) at radius 6, 32, 64 and 80 and B = 1 and 5, points on the grid and
   on the border: labels equal wherever the two displacements' float64
   costs differ by more than 1e-5 relative, and equal to the numpy model of
-  the kernel's arithmetic (tests/match_model.py) everywhere; a radius whose
-  window takes dy in bands; the launch counter; two host threads launching
-  on two streams at once, each equal to its own launch alone; bad inputs
-  raise.
+  the kernel's arithmetic (tests/match_model.py) everywhere; every block
+  on the sentinel path for planes >= 0. Equal to the model everywhere on
+  each of the kernel's paths: planes with negative values (the general
+  tap loop, on the blocks whose patch holds one), patch radius 0, 2 and 6
+  (the runtime-p instance), a search window larger than the image, a
+  radius whose window takes dy in bands. The launch counter; two host
+  threads launching on two streams at once, each equal to its own launch
+  alone; bad inputs raise.
 - `variational_twoframe_batched` through its CUDA graph bitwise equal to
   the eager solve (`_eager=True`) at B = 40 (K5's streaming path) and
   B = 1, with the second call replaying and capturing nothing.
@@ -70,8 +74,10 @@ def test_kernel_matches_twin_and_model(cuda_device, radius, h, w, step, b):
     g1, g2 = _planes(np.random.default_rng(radius + b), b, h, w)
     ys, xs = _points(b, h, w, step)
     kernels.reset_launch_counts()
+    matching.grid_match_paths()
     got = _kernel(cuda_device, g1, g2, ys, xs, radius)
     assert kernels.LAUNCHES["grid_match"] == 1
+    assert matching.grid_match_paths() == {"sentinel": ys.size, "general": 0}
     twin = matching._best_displacement(
         *(torch.tensor(a, device=cuda_device) for a in (g1, g2, ys, xs)),
         radius, 4).cpu().numpy()
@@ -84,12 +90,15 @@ def test_kernel_matches_twin_and_model(cuda_device, radius, h, w, step, b):
 
 
 @pytest.mark.cuda
-def test_kernel_takes_dy_in_bands(cuda_device):
-    out = (ctypes.c_longlong * 5)()
+@pytest.mark.parametrize("negative", [False, True])
+def test_kernel_takes_dy_in_bands(cuda_device, negative):
+    out = (ctypes.c_longlong * 6)()
     kernels.check(kernels.load().sf_grid_match_plan(150, 300, 120, 4, out),
                   "plan")
     assert out[1] > 1                      # bands
     g1, g2 = _planes(np.random.default_rng(7), 1, 150, 300)
+    if negative:
+        g1 -= 0.5
     ys, xs = _points(1, 150, 300, 75)
     got = _kernel(cuda_device, g1, g2, ys, xs, 120)
     twin = matching._best_displacement(
@@ -97,6 +106,53 @@ def test_kernel_takes_dy_in_bands(cuda_device):
         120, 4).cpu().numpy()
     ties = match_model.differ_only_on_ties(g1, g2, ys, xs, got, twin, 120, 4)
     assert all(ok for _, ok in ties), ties
+    np.testing.assert_array_equal(
+        got, match_model.best_displacement(g1, g2, ys, xs, 120, 4))
+
+
+def _general_blocks(g1, ys, xs, patch_r):
+    """Points whose in-image patch of g1 holds a value < 0 (or NaN)."""
+    b, h, w = g1.shape
+    n = 0
+    for bi in range(b):
+        for y, x in zip(ys[bi], xs[bi]):
+            patch = g1[bi, max(0, y - patch_r):y + patch_r + 1,
+                       max(0, x - patch_r):x + patch_r + 1]
+            n += int(not (patch >= 0).all())
+    return n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patch_r", [4, 2])
+def test_general_path_on_negative_planes(cuda_device, patch_r):
+    """Negative values in the top half of g1: the blocks whose patch holds
+    one take the general tap loop, the others the sentinel path; labels
+    equal the model's everywhere."""
+    b, h, w, radius = 2, 41, 57, 9
+    g1, g2 = _planes(np.random.default_rng(11), b, h, w)
+    g1[:, :h // 2] -= 0.5
+    g2[:, h // 3:] -= 0.25
+    ys, xs = _points(b, h, w, 6)
+    matching.grid_match_paths()
+    got = _kernel(cuda_device, g1, g2, ys, xs, radius, patch_r)
+    general = _general_blocks(g1, ys, xs, patch_r)
+    assert 0 < general < ys.size
+    assert matching.grid_match_paths() == {"sentinel": ys.size - general,
+                                           "general": general}
+    np.testing.assert_array_equal(
+        got, match_model.best_displacement(g1, g2, ys, xs, radius, patch_r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, w, radius, step, patch_r", [
+    (48, 70, 12, 7, 0), (48, 70, 12, 7, 2), (48, 70, 12, 7, 6),  # runtime p
+    (23, 35, 40, 5, 4), (23, 35, 40, 5, 1)])  # window larger than the image
+def test_kernel_equals_model(cuda_device, h, w, radius, step, patch_r):
+    g1, g2 = _planes(np.random.default_rng(radius + patch_r), 2, h, w)
+    ys, xs = _points(2, h, w, step)
+    got = _kernel(cuda_device, g1, g2, ys, xs, radius, patch_r)
+    np.testing.assert_array_equal(
+        got, match_model.best_displacement(g1, g2, ys, xs, radius, patch_r))
 
 
 @pytest.mark.cuda
