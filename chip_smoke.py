@@ -30,14 +30,18 @@ Phases (any failure makes the script exit non-zero without the final line):
      smoothing methods 0/1/2 from zero and from a given increment, K4
      warp_stack at the bench flow and at ~20 px, K5 sor (30 sweeps from a
      nonzero increment), K6's entry warp_stack_pallas (factors -2..2), and
-     K3 on K4's stack against K2; K1 and K5 also on their streaming path
-     (B=16 at 270x480) and at odd shapes, K5 at stage 1's B=40 x 270x480,
-     K2 at an odd shape; relative
+     K3 on K4's stack against K2; K1 also on its grouped path (8 and 16 x
+     270x480, 4 x 540x960) and its row-streamed path (1 x 1080x1920), K5 on
+     the grouped path at B=16 and at stage 1's B=40 x 270x480 and on its
+     row-streamed path (1 x 1080x1920), each also
+     with du / dv bitwise equal to the jets solved one at a time, and K1 /
+     K5 at odd shapes, K2 at an odd shape; relative
      error, time (CUDA events), the least time the card could take for the
      same work (bound), the time of grid_sample on K4's and K6's planes (K4
      and K6's entry must not take more device time than it at the bench
      shape), and each wrapper's CUDA launches and device time in one call
-     under torch.profiler; K1 / K5's band plans and K2 / K3 / K4's
+     under torch.profiler; K1 / K5's plans (regime, jets a group, groups,
+     bands, ring chunks) with their group and HBM floors, and K2 / K3 / K4's
      registers, spills and resident blocks per SM (K2 and K3 need 2);
      then the EPIC grid matcher's kernel (csrc/grid_match.cu, the JAX
      package's jitted _grid_match_core) against its twin at phase 5's
@@ -67,8 +71,9 @@ Phases (any failure makes the script exit non-zero without the final line):
      bench scene written as 8-bit PNGs at 270x480, Jets 4, S = 3, -batch 4,
      in this process with the phase timers on: K1, K2 and the matcher
      launched, flow_recovery_err_px of jet 0's forward .flo (per frame) <=
-     0.01, the init's own recovery error, matches kept, the per-phase
-     seconds, the matcher's share of the init and the wall per batch; then
+     0.01, the init's own recovery error, matches kept, a digest of every
+     .flo written, the per-phase seconds, the matcher's share of the init,
+     the wall and the solve per batch; then
      the same CLI with deep_matching 0 for the wall per batch without the
      init;
   6. stage1: the stage-1 CLI over 40 samples of 42 frames of the same scene
@@ -156,7 +161,7 @@ Phases (any failure makes the script exit non-zero without the final line):
      (10 x 135 x 240), eager against its graph: bitwise, walls, launch
      calls, device kernels, idle share, one capture.
  16. twoframe_dispatch: variational_twoframe_batched (sintel preset) at
-     stage 1's 40 x 270 x 480 (K5's streaming path) and the epicflow CLI's
+     stage 1's 40 x 270 x 480 (K5's grouped path) and the epicflow CLI's
      1 x 270 x 480, eager against its CUDA graph: wx, wy bitwise on the
      capturing and the replaying call, one capture and none on the second
      call, K5's launches equal, walls, host launch calls by API, device
@@ -184,6 +189,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import json
 import subprocess
 import sys
@@ -587,12 +593,41 @@ def _compare(name, entry_key, kern, twin, what, work=None, library=None):
 
 VARIANTS = (("assembly", False), ("assembly", True), ("occ", False),
             ("occ", True), ("occ_assembly", True))
+# K1 / K5's plans printed in phase 2: resident, grouped (2, 4 and 8 groups,
+# one jet a group at 540 x 960), row-streamed (1080p, 2160p, sp windows)
+SOLVE_PLAN_SHAPES = ((4, 270, 480), (4, 176, 314), (8, 270, 480),
+                     (16, 270, 480), (40, 270, 480), (4, 540, 960),
+                     (1, 1080, 1920), (1, 2160, 3840), (2, 1207, 3840))
+def _per_jet_bitwise(name, plan, iterations, call, planes, what):
+    """du / dv of `call` on the planes equal the jets solved one at a time
+    (a single jet: itself inside a batch of two, in other bands); records
+    the result beside `name`'s last entry and prints it with both floors
+    of `plan`."""
+    import torch
+
+    from slowflow_tpu_torch.variational import fused_solve
+
+    b, h, w = planes[0].shape
+    got = call(planes)
+    if b == 1:
+        pair = call([torch.cat([x, x]) for x in planes])
+        alone = [x[:1] for x in pair]
+    else:
+        outs = [call([x[i:i + 1] for x in planes]) for i in range(b)]
+        alone = [torch.cat(parts) for parts in zip(*outs)]
+    same = all(torch.equal(g, a) for g, a in zip(got[:2], alone[:2]))
+    floors = fused_solve.solve_floors(plan, b, h, w, iterations)
+    entry = RECORD["kernels_vs_twins"][name][-1]
+    entry["per_jet_bitwise"] = same
+    check(same, f"{what}: du / dv bitwise the jets solved one at a time; "
+          f"floors: group {floors['group_floor_ms']:.3f} ms, HBM "
+          f"{floors['hbm_floor_ms']} ms; {entry['ms']:.3f} ms")
 
 
 def kernels_vs_twins():
     """K2 and K1 against their twins (K2 also at an odd shape, K1 also on
-    its streaming path and at odd shapes); K1 / K5's band plans and K2 /
-    K3's registers and resident blocks."""
+    its grouped and row-streamed paths and at odd shapes); K1 / K5's plans
+    and K2 / K3's registers and resident blocks."""
     import ctypes
 
     import torch
@@ -621,12 +656,17 @@ def kernels_vs_twins():
     RECORD["resources"]["K4 / K6 warp_stack"] = list(res)
     print(f"K4 / K6 warp_stack: {res[0]} blocks/SM, {res[1]} registers, "
           f"{res[2]} B spilled")
-    for shape in ((4, 270, 480), (4, 176, 314), (16, 270, 480)):
-        for k5 in (False, True):
-            plan = fused_solve.solve_plan(*shape, k5=k5)
-            RECORD.setdefault("solve_plans", {})[
-                f"{'K5' if k5 else 'K1'} {shape}"] = plan._asdict()
-            print(f"{'K5' if k5 else 'K1'} plan at {shape}: {plan}")
+    for shape in SOLVE_PLAN_SHAPES:
+        plan = fused_solve.solve_plan(*shape)
+        floors = fused_solve.solve_floors(plan, *shape, 30)
+        RECORD.setdefault("solve_plans", {})[str(shape)] = dict(
+            plan._asdict(), **floors)
+        print(f"K1 / K5 plan at {shape}: {plan.regime}, G {plan.group}, "
+              f"{plan.groups} groups, {plan.bands_per_jet} bands a jet of "
+              f"<= {plan.rows} rows, grid {plan.grid}, chunks {plan.chunks} "
+              f"of {plan.chunk}; floors at 30 sweeps: group "
+              f"{floors['group_floor_ms']:.3f} ms, HBM "
+              f"{floors['hbm_floor_ms']} ms")
 
     for (b, h, w) in ((4, 270, 480), (4, 176, 314), (3, 131, 237)):
         args = _k2_inputs(b, h, w, 0, dev)
@@ -638,31 +678,40 @@ def kernels_vs_twins():
                      f"K2 {mode:12s} zero_duv={zero_duv!s:5} {b}x{h}x{w}",
                      work=_work_assembly(p, b, h, w, mode, zero_duv, True))
 
-    # bench shapes (resident), B = 16 (streaming), odd shapes, short runs
+    # bench shapes (resident), B = 8 / 16 and 4 x 540 x 960 (grouped),
+    # 1080p (row-streamed), odd shapes, short runs
     cases = [(4, 270, 480, m, p.niter_solver) for m in (0, 1, 2)]
     cases += [(4, 176, 314, m, p.niter_solver) for m in (0, 1, 2)]
-    cases += [(16, 270, 480, 1, p.niter_solver), (3, 37, 5, 1, 30),
-              (1, 45, 70, 2, 1), (2, 9, 1, 0, 0)]
+    cases += [(b, h, w, 1, p.niter_solver) for b, h, w in (
+        (8, 270, 480), (16, 270, 480), (4, 540, 960), (1, 1080, 1920))]
+    cases += [(3, 37, 5, 1, 30), (1, 45, 70, 2, 1), (2, 9, 1, 0, 0)]
     for (b, h, w, method, iterations) in cases:
         t = _k1_inputs(b, h, w, 1, dev)
-        resident = fused_solve.solve_plan(b, h, w).resident
+        plan = fused_solve.solve_plan(b, h, w)
         for zero_init in (True, False):
             du, dv = (None, None) if zero_init else (t[8], t[9])
             kw = dict(alpha=p.alpha, reg_pen=reg, method=method,
                       iterations=iterations, omega=p.sor_omega,
                       with_change=True)
-            _compare("solve_step", dict(shape=[b, h, w], method=method,
-                                        zero_init=zero_init,
-                                        iterations=iterations,
-                                        resident=resident),
+            key = dict(shape=[b, h, w], method=method, zero_init=zero_init,
+                       iterations=iterations, regime=plan.regime,
+                       group=plan.group, groups=plan.groups)
+            what = (f"K1 method {method} zero_init={zero_init!s:5} "
+                    f"{b}x{h}x{w} x {iterations} sweeps ({plan.regime})")
+            _compare("solve_step", key,
                      lambda: fused_solve.solve_step(*t[:8], du, dv, **kw),
                      lambda: fused_solve.solve_step_ref(*t[:8], du, dv, **kw),
-                     f"K1 method {method} zero_init={zero_init!s:5} "
-                     f"{b}x{h}x{w} x {iterations} sweeps "
-                     f"({'resident' if resident else 'streaming'})",
+                     what,
                      work=_work_solve(b, h, w, method, zero_init, iterations))
-    check(not fused_solve.solve_plan(16, 270, 480).resident,
-          "K1 at 16x270x480 takes the streaming path")
+            if plan.regime != "resident":
+                _per_jet_bitwise(
+                    "solve_step", plan, iterations,
+                    lambda x: fused_solve.solve_step(
+                        *x[:8], *((None, None) if zero_init else x[8:10]),
+                        **kw), t, what)
+    plan = fused_solve.solve_plan(16, 270, 480)
+    check((plan.regime, plan.groups) == ("grouped", 4),
+          f"K1 at 16x270x480 takes the grouped path, 4 groups ({plan})")
 
     # the change sums are bit-identical from run to run
     t = _k1_inputs(4, 270, 480, 1, dev)
@@ -682,7 +731,8 @@ def route_kernels_vs_twins():
     import torch
 
     from slowflow_tpu_torch.core import solver_pallas, warp_pallas, warp_shift
-    from slowflow_tpu_torch.variational import fused_data, fused_warp, terms
+    from slowflow_tpu_torch.variational import (fused_data, fused_solve,
+                                                fused_warp, terms)
 
     dev = torch.device("cuda")
     p = bench_params()
@@ -748,7 +798,7 @@ def route_kernels_vs_twins():
                       f"{r['ms']:.4f} vs {r['library_ms']:.4f} ms)")
 
     for (b, h, w) in ((4, 270, 480), (4, 176, 314), (16, 270, 480),
-                      (40, 270, 480)):
+                      (40, 270, 480), (1, 1080, 1920)):
         t = _k1_inputs(b, h, w, 2, dev)
         rng = np.random.default_rng(3)
         wh, wv = (torch.tensor(0.5 * rng.random((b, h, w)) + 0.05,
@@ -756,11 +806,20 @@ def route_kernels_vs_twins():
                   for _ in range(2))
         system = (t[8], t[9], *t[3:8], wh, wv)   # du, dv nonzero
         kw = dict(iterations=p.niter_solver, omega=p.sor_omega)
-        _compare("sor", dict(shape=[b, h, w], iterations=p.niter_solver),
+        plan = fused_solve.solve_plan(b, h, w)
+        key = dict(shape=[b, h, w], iterations=p.niter_solver,
+                   regime=plan.regime, group=plan.group, groups=plan.groups)
+        what = (f"K5 sor {p.niter_solver} sweeps from du, dv != 0 "
+                f"{b}x{h}x{w} ({plan.regime})")
+        _compare("sor", key,
                  lambda: solver_pallas.sor_coupled_rb_pallas(*system, **kw),
                  lambda: solver_pallas.sor_coupled_rb(*system, **kw),
-                 f"K5 sor {p.niter_solver} sweeps from du, dv != 0 "
-                 f"{b}x{h}x{w}", work=_work_sor(b, h, w, p.niter_solver))
+                 what, work=_work_sor(b, h, w, p.niter_solver))
+        if plan.regime != "resident":
+            _per_jet_bitwise("sor", plan, p.niter_solver,
+                             lambda x: solver_pallas.
+                             sor_coupled_rb_pallas(*x, **kw), list(system),
+                             what)
 
 
 # ------------------------------------------------------ phase 2: matcher
@@ -1347,7 +1406,11 @@ def cli_stage2_epic():
             err = abs(float(np.median(flow[8:-8, 8:-8, 0])) / steps
                       - BENCH_UV[0])
             n_batch = totals.get("sf.batch", (0.0, 0))[1]
+            flo_digest = hashlib.sha256(b"".join(
+                f.read_bytes() for f in sorted(
+                    (tmp / f"out{dm}").rglob("*.flo")))).hexdigest()[:16]
             r = dict(rc=rc, wall_s=wall, launches=counts,
+                     flo_digest=flo_digest,
                      flow_recovery_err_px=err, batches=n_batch,
                      phases={k: v for k, v in totals.items()},
                      wall_per_batch_s=totals["sf.batch"][0] / max(n_batch, 1),
@@ -1364,7 +1427,8 @@ def cli_stage2_epic():
                   "warp_assemble)")
             check(err <= RECOVERY_TOL, f"{what}: flow_recovery_err_px of jet"
                   f" 0's forward .flo per frame {err:.5f} <= {RECOVERY_TOL}")
-            print(f"{what}: {n_batch} batches of 4 jets, wall per batch "
+            print(f"{what}: {n_batch} batches of 4 jets, .flo digest "
+                  f"{flo_digest}, wall per batch "
                   f"{r['wall_per_batch_s']:.3f} s (solve "
                   f"{r['solve_per_batch_s']:.3f} s; solve calls "
                   f"{[round(t, 3) for t in solve_s]} s); merged slice of phase 3"
@@ -1404,7 +1468,7 @@ def stage1():
     from slowflow_tpu_torch.utils import phases
     from slowflow_tpu_torch.variational import fused_solve
 
-    plan = fused_solve.solve_plan(40, 270, 480, k5=True)
+    plan = fused_solve.solve_plan(40, 270, 480)
     rec = RECORD.setdefault("stage1", {"k5_plan_b40": plan._asdict()})
     print(f"K5 plan at (40, 270, 480): {plan}")
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
@@ -2986,6 +3050,15 @@ def main() -> int:
         "launches", {}).get("sor", 0)
     line["kernels"][4]["b40"] = {k: k5_b40[0].get(k) for k in (
         "ms", "plain_ms", "bound_ms", "device_ms")} if k5_b40 else None
+    # K1 / K5 on the grouped and row-streamed paths (phase 2)
+    for entry in (line["kernels"][1], line["kernels"][4]):
+        entry["regimes"] = {
+            "x".join(map(str, r["shape"])): {k: r.get(k) for k in (
+                "regime", "group", "groups", "ms", "device_ms", "plain_ms",
+                "bound_ms", "per_jet_bitwise", "abs_err")}
+            for r in kv.get(entry["name"], [])
+            if r.get("regime") not in (None, "resident")
+            and r.get("zero_init", True)}
     # K5 inside the two-frame solve's CUDA graph (phase 16, per replay)
     line["kernels"][4]["twoframe_graph_launches"] = {
         name: r["replay_launches"]["sor"]

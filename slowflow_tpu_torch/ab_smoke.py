@@ -3,7 +3,7 @@ and the grid matcher alone, in turns on a parent tree and on this tree, on
 one card.
 
     python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR [--rounds N]
-    python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR --slice REPS [--rounds N]
+    python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR --slice REPS [--batch B] [--rounds N]
     python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR --kernels REPS [--rounds N]
     python3 -m slowflow_tpu_torch.ab_smoke PARENT_DIR --phases NAME [...]
 
@@ -24,17 +24,26 @@ flow_recovery_err_px. Exits non-zero if a run fails.
 
 With --slice, each turn is a fresh process that imports that tree's
 slowflow_tpu_torch, solves the merged-route slice of chip_smoke.py (bench
-config, batch 4, 270x480, the scene of this tree's bench_scene.py) once to
+config, --batch jets, 270x480, the scene of this tree's bench_scene.py) once to
 warm up and REPS times on the clock, then once under torch.profiler for
 the device busy time; it prints the median and every wall time, and the
-idle share against the median.
+idle share against the median. A last solve, off the clock, records the
+digest of its flow (wx, wy, occlusions) and, per pyramid level, the digest
+of the level's flow and the outer iterations each jet took (a jet takes
+an outer iteration while it is live: its change above thres_outer);
+the summary says whether the flows and the levels' iterations agree in
+every run.
 
 With --kernels, each turn is a fresh process that imports that tree's
 slowflow_tpu_torch and times, on the same seeded inputs at 4 x 270 x 480
 (K4: the 4 x 5 x 3 window), K1 `solve_step` (smoothing 1, zero start,
 change sums, 30 sweeps), K2 `warp_assemble` (`assembly` and `occ_assembly`,
 zero du / dv), K4 `warp_stack` (a bench-like flow) and K5
-`sor_coupled_rb_pallas` (30 sweeps), and the grid matcher
+`sor_coupled_rb_pallas` (30 sweeps); K1 and K5 again at SOLVE_SHAPES, the
+grouped and row-streamed paths' shapes, each with the digest of its du /
+dv, which must agree between the trees (K1's sums' digests are kept
+beside them: their band partials follow the plan), and each shape's group
+and HBM floors (`solve_floors`); and the grid matcher
 (`epic.matching.grid_match`, both directions, patch radius 4, the grid of
 step 8) at chip_smoke's phase 5 shape (4 x 270 x 480, radius 50) and
 stage 1's (40 x 270 x 480, radius 32) on the scene of this tree's
@@ -65,6 +74,12 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 BENCH = [4, 270, 480]
+# --kernels: K1 / K5 on every regime of csrc/solve_step.cu (resident at the
+# bench shape; grouped; row-streamed at 1080p and 2160 x 3840)
+SOLVE_SHAPES = (("K1", (4, 270, 480)), ("K1", (8, 270, 480)),
+                ("K1", (16, 270, 480)), ("K1", (4, 540, 960)),
+                ("K1", (1, 1080, 1920)), ("K1", (1, 2160, 3840)),
+                ("K5", (4, 270, 480)), ("K5", (40, 270, 480)))
 
 
 def _out_dir() -> Path:
@@ -137,7 +152,7 @@ def summary(record) -> dict:
 
 
 SLICE = """
-import importlib.util, json, statistics, sys, time
+import hashlib, importlib.util, json, statistics, sys, time
 sys.path.insert(0, {tree!r})
 import numpy as np, torch
 from torch.autograd import DeviceType
@@ -151,7 +166,7 @@ p = MultiFrameParams(S=3, alpha=4.0, gamma=6.0, delta=1.0, rho=(1.0, 1.0),
                      omega=(0.0, 2.0), layers=5, p_scale=0.9, niter_alter=10,
                      niter_outer=10, niter_inner=1, niter_solver=30,
                      occlusion_reasoning=True, smoothing=1)
-dev, (b, h, w) = torch.device("cuda"), (4, 270, 480)
+dev, (b, h, w) = torch.device("cuda"), ({batch}, 270, 480)
 seq = torch.tensor(np.stack([scene.moving_sequence(5, h, w, 1.5 + 0.2 * s,
                                                    -0.8, seed=s)
                              for s in range(b)]), device=dev)
@@ -170,11 +185,36 @@ with profile(activities=[ProfilerActivity.CUDA]) as prof:
     solve()
 busy = sum(e.time_range.elapsed_us() for e in prof.events()
            if e.device_type == DeviceType.CUDA) / 1e3
+# off the clock: the flow's digest, and per level its digest and the outer
+# iterations of each jet (the jets live as each outer solve starts)
+def digest(planes):
+    return hashlib.sha256(b"".join(
+        x.cpu().numpy().tobytes() for x in planes)).hexdigest()[:16]
+levels, drive = [], multiframe._Level.drive
+level_fn = multiframe.compute_one_level
+def counted_drive(self, run):
+    outer = torch.zeros(b, dtype=torch.int64)
+    def counting(segment, fn):
+        if segment[0] == "outer" or (segment[0] == "top" and self.fuse_occ):
+            flags = self.st.live if segment[0] == "outer" else self.st.alive
+            outer.add_(flags.cpu().long())
+        run(segment, fn)
+    drive(self, counting)
+    levels.append(dict(hw=list(self.st.wx.shape[1:]),
+                       outer_per_jet=outer.tolist()))
+def digested_level(*args, **kw):
+    out = level_fn(*args, **kw)
+    levels[-1]["flow_digest"] = digest(out)
+    return out
+multiframe._Level.drive = counted_drive
+multiframe.compute_one_level = digested_level
+flow_digest = digest(solve())
 print(json.dumps(dict(walls=walls, median_s=statistics.median(walls),
                       busy_ms=busy, idle_share=1 - busy / (
                           statistics.median(walls) * 1e3),
                       flow_recovery_err_px=abs(float(
-                          wx[0, 8:-8, 8:-8].median()) - 1.5))))
+                          wx[0, 8:-8, 8:-8].median()) - 1.5),
+                      flow_digest=flow_digest, levels=levels)))
 """
 
 
@@ -209,6 +249,31 @@ seq = torch.tensor(rng.random((b, 5, 3, h, w)) * 255, dtype=torch.float32,
 wx, wy = planes(2, 1.5, 0.5)
 cw = torch.ones((b, 3, h, w), device=dev)
 occ = planes(1)[0].sign()
+digests = {{}}
+# K1 (smoothing 1, zero start, sums) or K5 (from du, dv != 0), 30 sweeps,
+# on seeded planes of [nb, nh, nw]; the digest of du / dv (and of K1's
+# sums) of one call
+def solve_calls(kernel, nb, nh, nw):
+    g = np.random.default_rng(nb * 100003 + nh * 101 + nw)
+    x = [torch.tensor(g.normal(0, 1, (nb, nh, nw)), dtype=torch.float32,
+                      device=dev) for _ in range(12)]
+    uu, vv, b1, b2 = x[:4]
+    dpsis, a11, a22, wh, wv = (y.abs() * 0.5 + 0.2 for y in x[4:9])
+    a12, du, dv = (0.1 * y for y in x[9:12])
+    fn = (lambda: solve_step(
+        uu, vv, dpsis, a11, a12, a22, b1, b2, alpha=4.0, reg_pen=reg,
+        method=1, iterations=30, omega=1.9, with_change=True)) \
+        if kernel == "K1" else (lambda: sor_coupled_rb_pallas(
+            du, dv, a11, a12, a22, b1, b2, wh, wv, iterations=30,
+            omega=1.9))
+    out = [o.cpu().numpy().tobytes() for o in fn()]
+    shape = f"{{kernel}} {{nb}}x{{nh}}x{{nw}}"
+    digests[shape + " du/dv"] = hashlib.sha256(
+        b"".join(out[:2])).hexdigest()[:16]
+    if kernel == "K1":
+        sums[shape] = hashlib.sha256(out[2]).hexdigest()[:16]
+    return fn
+sums = {{}}
 calls = {{
     "K1 solve_step": lambda: solve_step(
         uu, vv, dpsis, a11, a12, a22, b1, b2, alpha=4.0, reg_pen=reg,
@@ -222,7 +287,9 @@ calls = {{
     "K5 sor": lambda: sor_coupled_rb_pallas(
         du, dv, a11, a12, a22, b1, b2, wh, wv, iterations=30, omega=1.9),
 }}
-digests = {{}}
+for kernel, shape in {SOLVE_SHAPES!r}:
+    calls[f"{{kernel}} {{'x'.join(map(str, shape))}}"] = solve_calls(
+        kernel, *shape)
 def matcher(nb, r):
     seq = np.round(np.stack([scene.moving_sequence(4, h, w, 1.5 + 0.2 * s,
                                                    -0.8, seed=s)[2:4]
@@ -268,6 +335,7 @@ for name, fn in calls.items():
     out[name] = dict(ms=start.elapsed_time(end) / {reps},
                      device_ms=device_ms(fn, 2 if "K7" in name else 1))
 out["labels"] = digests
+out["sums"] = sums
 print(json.dumps(out))
 """
 
@@ -284,6 +352,21 @@ print(json.dumps(dict(failures=c.FAILURES, record={{
 """
 
 
+def solve_floors() -> dict:
+    """The plan and the group and HBM floors (fused_solve.solve_floors) of
+    each --kernels K1 / K5 shape at 30 sweeps, from this tree's kernel
+    library on the current card."""
+    from .variational.fused_solve import solve_floors, solve_plan
+
+    out = {}
+    for kernel, shape in SOLVE_SHAPES:
+        plan = solve_plan(*shape)
+        out[f"{kernel} {'x'.join(map(str, shape))}"] = dict(
+            regime=plan.regime, group=plan.group, groups=plan.groups,
+            **solve_floors(plan, *shape, 30))
+    return out
+
+
 def _phase_line(result: dict) -> dict:
     """The numbers of a --phases run that a parent / change line shows."""
     rec = result.get("record", {})
@@ -295,6 +378,7 @@ def _phase_line(result: dict) -> dict:
                        matches_s=ph.get("sf.matches", [None])[0],
                        init_wait_s=ph.get("sf.init_wait", [None])[0],
                        matches_kept=r.get("matches_kept"),
+                       flo_digest=r.get("flo_digest"),
                        flow_recovery_err_px=r.get("flow_recovery_err_px"))
     st = rec.get("stage1")
     if st:
@@ -307,7 +391,8 @@ def _phase_line(result: dict) -> dict:
 def run_slice(tree: Path, tag: str, n: int, reps: int,
               template: str = SLICE, show: bool = True, **fields) -> dict:
     code = template.format(tree=str(tree), reps=reps, scene=str(
-        HERE / "slowflow_tpu_torch" / "bench_scene.py"), **fields)
+        HERE / "slowflow_tpu_torch" / "bench_scene.py"),
+        SOLVE_SHAPES=SOLVE_SHAPES, **fields)
     proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
                           capture_output=True, text=True, timeout=900)
     result = json.loads(proc.stdout.strip().splitlines()[-1]) \
@@ -342,6 +427,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", nargs="+", metavar="NAME",
                     help="run these chip_smoke.py phases per turn instead "
                          "of the whole script")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="jets a batch of --slice (default 4)")
     ap.add_argument("--kernels", type=int, default=0, metavar="REPS",
                     help="time K1 / K2 / K4 / K5 and the matcher over REPS "
                          "calls per turn instead of running chip_smoke.py")
@@ -367,7 +454,8 @@ def main(argv=None) -> int:
                 lines.append(run_slice(tree, tag, len(lines), args.kernels,
                                        KERNELS))
             elif args.slice:
-                lines.append(run_slice(tree, tag, len(lines), args.slice))
+                lines.append(run_slice(tree, tag, len(lines), args.slice,
+                                       batch=args.batch))
             else:
                 lines.append(run(tree, tag, len(lines), out))
     record = dict(card=smi, runs=lines)
@@ -378,13 +466,23 @@ def main(argv=None) -> int:
             for tree in ("parent", "change")}
         record["labels_agree"] = len({json.dumps(line.get("labels"))
                                       for line in lines}) == 1
+        record["solve_floors"] = solve_floors()
         print(json.dumps(record["median"]))
-        print(f"matcher labels equal in every run: {record['labels_agree']}")
+        print(json.dumps(record["solve_floors"]))
+        print(f"matcher labels and K1 / K5 du / dv equal in every run: "
+              f"{record['labels_agree']}")
+    if args.slice and all(line["rc"] == 0 for line in lines):
+        record["flows_agree"] = len({line["flow_digest"]
+                                     for line in lines}) == 1
+        record["levels_agree"] = len({json.dumps(line["levels"])
+                                      for line in lines}) == 1
+        print(f"flows equal in every run: {record['flows_agree']}; levels' "
+              f"flows and outer iterations: {record['levels_agree']}")
     if args.phases:
         record["records"] = records
     name = "phases_summary.json" if args.phases else \
         "kernels_summary.json" if args.kernels else \
-        "slice_summary.json" if args.slice else "summary.json"
+        f"slice_b{args.batch}_summary.json" if args.slice else "summary.json"
     (out / name).write_text(json.dumps(record, indent=1))
     ok = all(line["rc"] == 0 and not line.get("failures") for line in lines)
     return 0 if ok and record.get("labels_agree", True) else 1

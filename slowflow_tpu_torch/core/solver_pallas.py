@@ -44,7 +44,7 @@ def sor_coupled_rb_pallas(du, dv, a11, a12, a22, b1, b2, wh, wv, *,
     kernels.require_rows(rows, b, h, dev)
     ndu = torch.empty_like(du)
     ndv = torch.empty_like(dv)
-    n_scratch = solve_plan(b, h, w, k5=True).scratch_floats
+    n_scratch = solve_plan(b, h, w).scratch_floats
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     lib = kernels.load()
     err = lib.sf_sor_coupled_rb(

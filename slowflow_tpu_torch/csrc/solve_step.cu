@@ -27,7 +27,9 @@
 // other colour of its neighbours, so every half-sweep waits for the bands
 // that touch (an L2 round trip and block barriers, ~1.1 us a half-sweep on
 // an H100 SXM), and its cell updates are bound by shared-memory traffic (19
-// loads a cell).
+// loads a cell); the grouped path pays them once a group. The row-streamed
+// path is bound by HBM: a half-sweep reads its colour's nine arrays and the
+// other colour's four and writes two, ~60 bytes a cell a sweep.
 //
 // Design: one persistent kernel, launched with cudaLaunchCooperativeKernel so
 // that every block is resident. Each jet is cut into bands of rows; a block
@@ -48,11 +50,37 @@
 // and its flag land together), so the fetching threads poll the cells
 // themselves until they carry the half-sweep's epoch: no fence, no separate
 // flag, no grid-wide barrier between half-sweeps.
-// Where the bands of B x H x W do not fit the blocks' shared memory
-// ("streaming", e.g. B = 16 at 270 x 480), the same kernel keeps each band's
-// packed arrays in a global scratch region instead (read through L1 / L2),
-// and a block may own several bands. Resident blocks have 512 threads,
-// streaming ones 1024 (more loads in flight).
+//
+// Three regimes, chosen by the planner (make_plan) from B, H, W and the
+// card's SMs and shared memory:
+// - resident: the bands of all B jets fit one block per SM (the bench
+//   shape, 4 x 270 x 480).
+// - grouped: one jet's bands fit but the batch's do not (e.g. 8, 16 or 40 x
+//   270 x 480, B x 540 x 960). The grid, one block per SM, walks the batch
+//   in ceil(B / G_max) groups of at most G = ceil(B / ceil(B / G_max))
+//   jets that differ by at most one jet; each group runs as the resident path does (prologue
+//   into shared memory, 2 * iterations half-sweeps, epilogue), then the
+//   blocks move on to the next group without a grid barrier: every band of
+//   every group has exchange cells of its own, all set to epoch 0 before the
+//   one grid barrier that follows the first group's prologue. This is the
+//   TPU kernel's shape (one jet a grid program, held in VMEM for every
+//   sweep) with a group of jets on chip in place of one.
+// - row-streamed: one jet's bands do not fit (e.g. 1 x 1080 x 1920, the sp
+//   path's 2 x 1207 x 3840 windows). Each band's packed arrays stay in a
+//   global scratch region in the same colour-packed layout, and a
+//   half-sweep walks the band's rows in order, in chunks of at most CHUNK
+//   packed cells (a 1080p row is one chunk), through rings of rows in
+//   shared memory that the TMA's bulk copies fill AHEAD rows ahead of the
+//   row being updated: the other colour's du, dv, wh, wv, kept for the
+//   rows above and below, in one ring, the updated colour's nine arrays,
+//   needed for one row only, in a shorter one. The copies mark the
+//   coefficients' lines to leave L2 first, so du / dv, stored and read
+//   again every half-sweep, stay in L2 where they fit (at 1080p). The
+//   updated cells go back to the region, and the first and last row are
+//   published by the threads that update them. A block may own several
+//   bands.
+// Every block has NT threads. The cell update (relax) is one function for
+// both paths, so du / dv do not depend on the regime, the bands or B.
 // The change sums are deterministic: each band reduces its cells in a fixed
 // order, and after a final grid barrier block 0 adds the band partials of
 // each jet in band order (float atomics would make the outer loop's
@@ -68,8 +96,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT_RESIDENT = 512, NT_STREAMING = 1024;  // threads per block
+constexpr int NT = 512;            // threads per block
 constexpr int FETCH_BATCH = 2;     // exchange loads in flight per thread
+constexpr int AHEAD = 3;           // row-streamed: ring rows loading ahead
+constexpr int RING_OWN = AHEAD + 1;  // ... the updated colour's arrays
+constexpr int RING_NBR = AHEAD + 2;  // ... the other colour's (rows +- 1)
+constexpr int CHUNK = 960;         // row-streamed: packed cells of a ring row
+constexpr int STATIC_SMEM = 2 * NT * (int)sizeof(float);  // block_sum
 constexpr int MAX_DEVICES = 64;    // per-device cache of the card's limits
 
 struct SolveArgs {
@@ -131,10 +164,12 @@ struct KernelArgs {
   const float *du0, *dv0;              // start (null: zero)
   float *ndu, *ndv, *sums;             // outputs (sums may be null)
   const int* rows;                     // [B][3] strip windows, or null
-  uint4* xch;                          // [nbands][edge][colour][hwp]
-  float* partials;                     // [nbands][2]
-  float* regions;                      // streaming: [nbands][region]
-  int B, nbands, bpj, hwp, iterations;
+  uint4* xch;                          // [B * bpj][edge][colour][hwp]
+  float* regions;                      // row-streamed: [B * bpj][region]
+  float* partials;                     // [B * bpj][2]
+  int B, bpj, hwp, iterations;
+  int groups;                          // group g: jets [g B / groups, ...)
+  int kc, nch;                         // row-streamed: chunk width, chunks
   size_t region;                       // floats of one band's arrays
   float omega;
 };
@@ -208,9 +243,6 @@ __device__ void prologue(const KernelArgs& a, const Band& d) {
     d.wv[at(lr, c, k, hwp)] = wv;
     if (lr >= 0) d.wh[at(lr, c, k, hwp)] = wh;
   }
-  // exchange cells of this band carry epoch 0 until the first half-sweep
-  for (int idx = threadIdx.x; idx < 4 * hwp; idx += blockDim.x)
-    a.xch[(size_t)d.id * 4 * hwp + idx] = make_uint4(0u, 0u, 0u, 0u);
   // starting values of the halo rows (zero outside the image)
   for (int idx = threadIdx.x; idx < 2 * W; idx += blockDim.x) {
     const int lr = idx < W ? -1 : d.rows, j = idx % W, i = d.i0 + lr;
@@ -263,6 +295,31 @@ __device__ void prologue(const KernelArgs& a, const Band& d) {
   __syncthreads();
 }
 
+// One relaxed coupled update of a cell from its neighbours' other colour
+// (north, west, south, east) and its system. Both paths call it, and its
+// roundings are spelled out (no contraction left to nvcc, which contracts
+// the same expressions differently in different kernels), so du / dv are
+// the same bits on each. They are the roundings nvcc chose for the plain
+// expressions su = w_n un + w_w uw + w_s us + w_e ue, nu = i11 B1 + i12
+// B2, nv = i12 B1 + i22 B2, du = (1 - omega) du + omega nu (and dv) in the
+// single-path kernel these paths replaced, so its results keep their bits.
+__device__ __forceinline__ void relax(float w_n, float w_w, float w_s,
+                                      float w_e, float un, float vn, float uw,
+                                      float vw, float us, float vs, float ue,
+                                      float ve, float r1, float r2, float i11,
+                                      float i12, float i22, float omega,
+                                      float& du, float& dv) {
+  const float su = __fmaf_rn(w_e, ue, __fmaf_rn(w_s, us, __fmaf_rn(
+      w_n, un, __fmul_rn(w_w, uw))));
+  const float sv = __fmaf_rn(w_e, ve, __fmaf_rn(w_s, vs, __fmaf_rn(
+      w_n, vn, __fmul_rn(w_w, vw))));
+  const float B1 = __fadd_rn(r1, su), B2 = __fadd_rn(r2, sv);
+  const float nu = __fmaf_rn(i12, B2, __fmul_rn(i11, B1));
+  const float nv = __fmaf_rn(i12, B1, __fmul_rn(i22, B2));
+  du = __fmaf_rn(1.f - omega, du, __fmul_rn(omega, nu));
+  dv = __fmaf_rn(omega, nv, __fmul_rn(1.f - omega, dv));
+}
+
 // Updates the band's cells of colour c in rows r0, r0 + step, ... (n rows),
 // with threads tid of nthr.
 __device__ void half_sweep(const Band& d, int W, int hwp, int c, float omega,
@@ -281,22 +338,14 @@ __device__ void half_sweep(const Band& d, int W, int hwp, int c, float omega,
     const int o = at(lr, c, k, hwp), x = at(lr, c ^ 1, 0, hwp);
     const int no = at(lr - 1, c ^ 1, k, hwp), so = at(lr + 1, c ^ 1, k, hwp);
     const bool hw = j > 0, he = j < W - 1;
-    const float w_n = d.wv[no], w_w = hw ? d.wh[x + k - 1 + off] : 0.f;
-    const float w_s = d.wv[o], w_e = d.wh[o];
-    const float un = d.du[no], vn = d.dv[no];
-    const float uw = hw ? d.du[x + k - 1 + off] : 0.f;
-    const float vw = hw ? d.dv[x + k - 1 + off] : 0.f;
-    const float us = d.du[so], vs = d.dv[so];
-    const float ue = he ? d.du[x + k + off] : 0.f;
-    const float ve = he ? d.dv[x + k + off] : 0.f;
-    const float su = w_n * un + w_w * uw + w_s * us + w_e * ue;
-    const float sv = w_n * vn + w_w * vw + w_s * vs + w_e * ve;
-    const float B1 = d.r1[o] + su, B2 = d.r2[o] + sv;
-    const float i12 = d.i12[o];
-    const float nu = d.i11[o] * B1 + i12 * B2;
-    const float nv = i12 * B1 + d.i22[o] * B2;
-    d.du[o] = (1.f - omega) * d.du[o] + omega * nu;
-    d.dv[o] = (1.f - omega) * d.dv[o] + omega * nv;
+    float u = d.du[o], v = d.dv[o];
+    relax(d.wv[no], hw ? d.wh[x + k - 1 + off] : 0.f, d.wv[o], d.wh[o],
+          d.du[no], d.dv[no], hw ? d.du[x + k - 1 + off] : 0.f,
+          hw ? d.dv[x + k - 1 + off] : 0.f, d.du[so], d.dv[so],
+          he ? d.du[x + k + off] : 0.f, he ? d.dv[x + k + off] : 0.f, d.r1[o],
+          d.r2[o], d.i11[o], d.i12[o], d.i22[o], omega, u, v);
+    d.du[o] = u;
+    d.dv[o] = v;
   }
 }
 
@@ -363,9 +412,179 @@ __device__ void fetch_halo(const KernelArgs& a, const Band& d, int c,
   }
 }
 
+// Row-streamed: a ring row's arrays, in floats from the row's start, for
+// chunks of at most kc packed cells (kc, k0 and hwp are multiples of 4, so
+// every copy is a multiple of 16 bytes). The other colour's ("nbr") du, dv
+// and wh at packed cells k0 - 4 .. k0 + kc + 3 and its wv at k0 .. k0 + kc
+// - 1; the updated colour's ("own") du, dv, wh, wv, rhs1, rhs2, i11, i12,
+// i22 at k0 .. k0 + kc - 1.
+struct NbrRow {
+  int nu, nv, nwh, nwv, floats;
+  __host__ __device__ explicit NbrRow(int kc)
+      : nu(0), nv(kc + 8), nwh(2 * (kc + 8)), nwv(3 * (kc + 8)),
+        floats(nwv + kc) {}
+};
+constexpr int OWN_ARRAYS = 9;
+
+// Shared bytes of the row-streamed rings and their mbarriers (one an
+// item, RING_NBR of them).
+int ring_bytes(int kc) {
+  return (RING_OWN * OWN_ARRAYS * kc + RING_NBR * NbrRow(kc).floats) *
+             (int)sizeof(float) +
+         RING_NBR * 8;
+}
+
+// The ring's copies: the Tensor Memory Accelerator's bulk copies (16-byte
+// aligned, multiples of 16 bytes), each ring row's landing counted by an
+// mbarrier of its own.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(unsigned long long* bar,
+                                           unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned long long* bar,
+                                         unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// A bulk copy; `first` marks its lines in L2 to be evicted first.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar,
+                                          bool first) {
+  unsigned long long policy;
+  if (first)
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+                 : "=l"(policy));
+  else
+    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;"
+                 : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// Row-streamed half-sweep of colour c of one band, epoch e for its
+// published rows. The band's rows -1 .. rows of every chunk form one
+// sequence of ring items; the item of row lr in 0 .. rows - 1 is updated
+// once the items of rows lr - 1 .. lr + 1 have landed, while the bulk
+// copies of the next AHEAD - 1 are in flight. `loaded` counts the block's
+// items of every earlier pass: item g lands in own row g % RING_OWN and
+// nbr row g % RING_NBR, counted by the (g / RING_NBR)-th phase of mbarrier
+// g % RING_NBR. The halo rows must hold the neighbours' colour c ^ 1
+// (fetch_halo). The updated cells are in the region once the block has
+// passed a barrier.
+__device__ void ring_half_sweep(const KernelArgs& a, const Band& d, int c,
+                                unsigned e, float* smem, unsigned& loaded) {
+  const int hwp = a.hwp, W = a.s.W, tid = threadIdx.x, n = c ^ 1;
+  const int per = d.rows + 2, items = a.nch * per;
+  const NbrRow L(a.kc);
+  float* nbr_ring = smem + RING_OWN * OWN_ARRAYS * a.kc;
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(
+      nbr_ring + RING_NBR * L.floats);
+  const float* own[OWN_ARRAYS] = {d.du, d.dv, d.wh, d.wv, d.r1,
+                                  d.r2, d.i11, d.i12, d.i22};
+  // the region's cells this block stored (the last pass, fetch_halo, the
+  // prologue) are read by the bulk copies
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+  __syncthreads();  // ... and the rings' last readers are done
+  auto own_row = [&](int q) {
+    return smem + (loaded + q) % RING_OWN * OWN_ARRAYS * a.kc;
+  };
+  auto nbr_row = [&](int q) {
+    return nbr_ring + (loaded + q) % RING_NBR * L.floats;
+  };
+  auto bar = [&](int q) { return bars + (loaded + q) % RING_NBR; };
+  auto load = [&](int q) {  // thread 0
+    if (q >= items) return;
+    const int lr = q % per - 1, k0 = q / per * a.kc;
+    const int kc = min(a.kc, hwp - k0);
+    const bool in = lr >= 0 && lr < d.rows;
+    const int r = at(lr, n, 0, hwp), o = at(lr, c, 0, hwp);
+    // nbr: du, dv (+ wh in the band) at k0 - 4 .. k0 + kc + 3 inside the
+    // row, wv above the last row; own: the nine arrays, in the band. du /
+    // dv (stored and read again every half-sweep) stay in L2 where they
+    // fit; the coefficients are evicted first.
+    const int lo = max(k0 - 4, 0), hi = min(k0 + kc + 4, hwp);
+    const int nw = in ? 3 : 2, nwv = lr < d.rows, no = in ? OWN_ARRAYS : 0;
+    float* s = nbr_row(q);
+    bar_expect(bar(q), 4u * (nw * (hi - lo) + (nwv + no) * kc));
+    for (int w = 0; w < nw; ++w)
+      bulk_copy(s + w * (a.kc + 8) + lo - (k0 - 4),
+                (w == 0 ? d.du : w == 1 ? d.dv : d.wh) + r + lo,
+                4u * (hi - lo), bar(q), w == 2);
+    if (nwv) bulk_copy(s + L.nwv, d.wv + r + k0, 4u * kc, bar(q), true);
+    for (int w = 0; w < no; ++w)
+      bulk_copy(own_row(q) + w * a.kc, own[w] + o + k0, 4u * kc, bar(q),
+                w > 1);
+  };
+  if (tid == 0)
+    for (int q = 0; q < AHEAD; ++q) load(q);
+  for (int q = 0; q < items; ++q) {
+    // item q + 1 has landed (and item 0 before the first step)
+    if (q == 0) bar_wait(bar(0), loaded / RING_NBR & 1);
+    if (q + 1 < items) bar_wait(bar(q + 1), (loaded + q + 1) / RING_NBR & 1);
+    // every thread is past item q - 1: q - 1's own row and q - 2's nbr
+    // row are free
+    __syncthreads();
+    if (tid == 0) load(q + AHEAD);
+    const int lr = q % per - 1, k0 = q / per * a.kc;
+    if (lr < 0 || lr >= d.rows) continue;
+    const float* P = nbr_row(q + RING_NBR - 1);
+    const float* C = nbr_row(q);
+    const float* N = nbr_row(q + 1);
+    const float* O = own_row(q);
+    const int off = (d.i0 + d.par + lr + c) & 1, o = at(lr, c, k0, hwp);
+    for (int i = tid; i < min(a.kc, hwp - k0); i += NT) {
+      const int k = k0 + i, j = 2 * k + off;
+      float u = O[i], v = O[a.kc + i];
+      if (j < W) {
+        const bool hw = j > 0, he = j < W - 1;
+        const float* x = O + i;
+        relax(P[L.nwv + i], hw ? C[L.nwh + i + 3 + off] : 0.f, x[3 * a.kc],
+              x[2 * a.kc], P[L.nu + i + 4], P[L.nv + i + 4],
+              hw ? C[L.nu + i + 3 + off] : 0.f,
+              hw ? C[L.nv + i + 3 + off] : 0.f, N[L.nu + i + 4],
+              N[L.nv + i + 4], he ? C[L.nu + i + 4 + off] : 0.f,
+              he ? C[L.nv + i + 4 + off] : 0.f, x[4 * a.kc], x[5 * a.kc],
+              x[6 * a.kc], x[7 * a.kc], x[8 * a.kc], a.omega, u, v);
+        d.du[o + i] = u;
+        d.dv[o + i] = v;
+      }
+      // every cell of an edge row is published, as publish() does
+      if (lr == 0 && d.above) ll_store(xch_row(a, d.id, 0, c) + k, u, v, e);
+      if (lr == d.rows - 1 && d.below)
+        ll_store(xch_row(a, d.id, 1, c) + k, u, v, e);
+    }
+  }
+  loaded += items;
+}
+
 // Fixed-order block sum of (u, v) (blockDim.x a power of 2).
 __device__ void block_sum(float& u, float& v) {
-  __shared__ float su[NT_STREAMING], sv[NT_STREAMING];
+  __shared__ float su[NT], sv[NT];
   su[threadIdx.x] = u;
   sv[threadIdx.x] = v;
   __syncthreads();
@@ -405,38 +624,62 @@ __device__ void epilogue(const KernelArgs& a, const Band& d) {
   }
 }
 
-template <bool K5, bool RESIDENT>
-__global__ void __launch_bounds__(RESIDENT ? NT_RESIDENT : NT_STREAMING, 1)
-    solve_kernel(KernelArgs a) {
+template <bool K5, bool ROWS>
+__global__ void __launch_bounds__(NT, 1) solve_kernel(KernelArgs a) {
   extern __shared__ float smem[];
   cg::grid_group grid = cg::this_grid();
-  const int H = a.s.H, W = a.s.W, tid = threadIdx.x, nt = blockDim.x;
+  const int H = a.s.H, W = a.s.W, tid = threadIdx.x;
+  const int nbands = a.B * a.bpj;
   auto band = [&](int id) {
-    return band_at(a, id, RESIDENT ? smem : a.regions + id * a.region, H);
+    return band_at(a, id, ROWS ? a.regions + id * a.region : smem, H);
   };
-  for (int id = blockIdx.x; id < a.nbands; id += gridDim.x)
-    prologue<K5>(a, band(id));
-  grid.sync();  // every exchange cell holds epoch 0 before any band polls
+  unsigned loaded = 0;  // row-streamed: ring items of the block so far
+  if (ROWS && tid == 0) {
+    auto* bars = reinterpret_cast<unsigned long long*>(
+        smem + RING_OWN * OWN_ARRAYS * a.kc + RING_NBR * NbrRow(a.kc).floats);
+    for (int r = 0; r < RING_NBR; ++r) bar_init(bars + r);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // every exchange cell carries epoch 0 before any band polls
+  const size_t cells = (size_t)nbands * 4 * a.hwp;
+  for (size_t i = (size_t)blockIdx.x * NT + tid; i < cells;
+       i += (size_t)gridDim.x * NT)
+    a.xch[i] = make_uint4(0u, 0u, 0u, 0u);
 
-  for (int t = 0; t < 2 * a.iterations; ++t) {
-    const int c = t & 1;
-    for (int id = blockIdx.x; id < a.nbands; id += gridDim.x) {
-      const Band d = band(id);
-      if (t > 0) {  // the neighbours' colour c ^ 1 of half-sweep t - 1
-        fetch_halo(a, d, c ^ 1, (unsigned)t, tid, nt);
+  for (int g = 0; g < a.groups; ++g) {
+    // group g's jets [g B / groups, (g + 1) B / groups): sizes within one
+    const int first = g * a.B / a.groups * a.bpj + blockIdx.x;
+    const int end = (g + 1) * a.B / a.groups * a.bpj;
+    for (int id = first; id < end; id += gridDim.x) prologue<K5>(a, band(id));
+    if (g == 0) grid.sync();
+
+    for (int t = 0; t < 2 * a.iterations; ++t) {
+      const int c = t & 1;
+      for (int id = first; id < end; id += gridDim.x) {
+        const Band d = band(id);
+        if (t > 0) {  // the neighbours' colour c ^ 1 of half-sweep t - 1
+          fetch_halo(a, d, c ^ 1, (unsigned)t, tid, NT);
+          __syncthreads();
+        }
+        if (ROWS) {
+          ring_half_sweep(a, d, c, (unsigned)t + 1, smem, loaded);
+          continue;
+        }
+        // first and last row, published, then the interior
+        const int edges = d.rows > 1 ? 2 : 1;
+        half_sweep(d, W, a.hwp, c, a.omega, 0, edges, d.rows - 1, tid, NT);
+        __syncthreads();
+        publish(a, d, c, (unsigned)t + 1);
+        half_sweep(d, W, a.hwp, c, a.omega, 1, d.rows - 2, 1, tid, NT);
         __syncthreads();
       }
-      // first and last row, published, then the interior
-      const int edges = d.rows > 1 ? 2 : 1;
-      half_sweep(d, W, a.hwp, c, a.omega, 0, edges, d.rows - 1, tid, nt);
-      __syncthreads();
-      publish(a, d, c, (unsigned)t + 1);
-      half_sweep(d, W, a.hwp, c, a.omega, 1, d.rows - 2, 1, tid, nt);
-      __syncthreads();
+    }
+
+    for (int id = first; id < end; id += gridDim.x) {
+      if (ROWS) __syncthreads();  // the last pass's stores, for every thread
+      epilogue(a, band(id));
     }
   }
-
-  for (int id = blockIdx.x; id < a.nbands; id += gridDim.x) epilogue(a, band(id));
   if (!a.sums) return;
   grid.sync();
   if (blockIdx.x != 0) return;
@@ -451,23 +694,31 @@ __global__ void __launch_bounds__(RESIDENT ? NT_RESIDENT : NT_STREAMING, 1)
   }
 }
 
-// How a call is cut into bands: resident (one band per block, in shared
-// memory) where B x H x W fits the card's blocks, streaming otherwise.
+enum Regime { RESIDENT = 0, GROUPED = 1, ROW_STREAMED = 2 };
+
+// How a call is cut: into groups of `group` jets, each jet into bpj bands of
+// at most `rows` rows, a block per band of a group (on chip), or a band's
+// rows streamed through the ring in nch chunks of at most kc packed cells.
 struct Plan {
-  int resident, grid, nbands, bpj, rows, hwp, threads;
-  int smem_limit;                // the resident kernel's shared-memory limit
+  int regime, grid, nbands, bpj, rows, hwp, threads, group, groups, kc, nch;
   size_t smem, region, scratch;  // bytes, floats, floats
 };
 
-template <bool K5, bool RESIDENT>
+template <bool K5, bool ROWS>
 void* kernel_of() {
-  return (void*)solve_kernel<K5, RESIDENT>;
+  return (void*)solve_kernel<K5, ROWS>;
 }
 
-// The card's limits that a plan needs, read once per device.
+void* kernel_of(bool k5, bool rows) {
+  return k5 ? (rows ? kernel_of<true, true>() : kernel_of<true, false>())
+            : (rows ? kernel_of<false, true>() : kernel_of<false, false>());
+}
+
+// The card's limits that a plan needs, read once per device; the kernels'
+// shared-memory limit is raised there too.
 struct DeviceLimits {
   cudaError_t err;
-  int nsm, optin, occ_stream[2];  // SMs, opt-in shared bytes, streaming blocks/SM
+  int nsm, optin;
 };
 
 // The current device's limits. Shards call from several host threads at
@@ -475,7 +726,7 @@ struct DeviceLimits {
 const DeviceLimits* device_limits() {
   static std::once_flag once[MAX_DEVICES];
   static DeviceLimits limits[MAX_DEVICES];
-  static const DeviceLimits invalid{cudaErrorInvalidDevice, 0, 0, {0, 0}};
+  static const DeviceLimits invalid{cudaErrorInvalidDevice, 0, 0};
   int dev;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= MAX_DEVICES)
     return &invalid;
@@ -484,46 +735,75 @@ const DeviceLimits* device_limits() {
     cudaError_t err;
     if ((err = cudaDeviceGetAttribute(&d->nsm, cudaDevAttrMultiProcessorCount, dev)) ||
         (err = cudaDeviceGetAttribute(&d->optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                                      dev)) ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &d->occ_stream[0], solve_kernel<false, false>, NT_STREAMING, 0)) ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &d->occ_stream[1], solve_kernel<true, false>, NT_STREAMING, 0)))
+                                      dev))) {
       d->err = err;
-    else
-      d->err = cudaSuccess;
+      return;
+    }
+    // one block of NT threads must fit an SM beside the dynamic memory
+    // the plans use: the ring's at its widest and any band that fits
+    const int ring = ring_bytes(CHUNK);
+    for (int k = 0; k < 4; ++k) {
+      void* kern = kernel_of(k & 1, k & 2);
+      int occ = 0;
+      if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      d->optin - STATIC_SMEM)) ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &occ, kern, NT, (k & 2) ? ring : d->optin - STATIC_SMEM))) {
+        d->err = err;
+        return;
+      }
+      if (occ < 1) {
+        d->err = cudaErrorInvalidConfiguration;
+        return;
+      }
+    }
+    d->err = cudaSuccess;
   });
   return d;
 }
 
-cudaError_t make_plan(bool k5, int B, int H, int W, Plan& p) {
+// Bands per jet and rows per band when `slots` blocks hold g jets' bands.
+void bands(int H, int slots, int g, int& bpj, int& rows) {
+  bpj = std::min(H, std::max(1, slots / g));
+  rows = (H + bpj - 1) / bpj;
+}
+
+cudaError_t make_plan(int B, int H, int W, Plan& p) {
   const DeviceLimits* d = device_limits();
   if (d->err != cudaSuccess) return d->err;
   p.hwp = (W + 1) / 2;
-  const int static_smem = 2 * NT_STREAMING * (int)sizeof(float);
-  p.smem_limit = d->optin - static_smem;
-  // resident: one band per block, one block per SM
-  int bpj = std::min(H, std::max(1, d->nsm / B));
-  int rows = (H + bpj - 1) / bpj;
-  p.smem = region_floats(rows, p.hwp) * sizeof(float);
-  p.resident = B * bpj <= d->nsm && p.smem <= (size_t)p.smem_limit;
-  p.threads = p.resident ? NT_RESIDENT : NT_STREAMING;
-  if (p.resident) {
-    p.nbands = p.grid = B * bpj;
-    p.region = 0;
-  } else {
-    const int slots = d->occ_stream[k5] * d->nsm;
-    if (slots < 1) return cudaErrorInvalidConfiguration;
-    bpj = std::min(H, std::max(1, slots / B));
-    rows = (H + bpj - 1) / bpj;
-    p.nbands = B * bpj;
-    p.grid = std::min(p.nbands, slots);
-    p.smem = 0;
-    p.region = region_floats(rows, p.hwp);
+  p.threads = NT;
+  const size_t limit = (size_t)(d->optin - STATIC_SMEM);
+  // the most jets whose bands fit one block per SM (fewer jets, more and
+  // shorter bands: the first that fits from the top is the largest)
+  int gmax = 0;
+  for (int g = std::min(B, d->nsm); g >= 1 && !gmax; --g) {
+    bands(H, d->nsm, g, p.bpj, p.rows);
+    if (region_floats(p.rows, p.hwp) * sizeof(float) <= limit) gmax = g;
   }
-  p.bpj = bpj;
-  p.rows = rows;
-  // exchange cells (4 floats each), partials, streaming regions
+  if (gmax) {
+    p.groups = (B + gmax - 1) / gmax;
+    p.group = (B + p.groups - 1) / p.groups;
+    bands(H, d->nsm, p.group, p.bpj, p.rows);
+    p.regime = p.groups == 1 ? RESIDENT : GROUPED;
+    p.grid = p.group * p.bpj;
+    p.smem = region_floats(p.rows, p.hwp) * sizeof(float);
+    p.region = 0;
+    p.kc = p.nch = 0;
+  } else {
+    p.regime = ROW_STREAMED;
+    p.group = B;
+    p.groups = 1;
+    bands(H, d->nsm, B, p.bpj, p.rows);
+    p.grid = std::min(B * p.bpj, d->nsm);
+    p.hwp = (p.hwp + 3) / 4 * 4;  // 16-byte rows for the ring's copies
+    p.nch = (p.hwp + CHUNK - 1) / CHUNK;
+    p.kc = ((p.hwp + p.nch - 1) / p.nch + 3) / 4 * 4;
+    p.smem = ring_bytes(p.kc);
+    p.region = region_floats(p.rows, p.hwp);
+  }
+  p.nbands = B * p.bpj;
+  // exchange cells (4 floats each), row-streamed regions, partials
   p.scratch = (size_t)p.nbands * (16 * p.hwp + 2) + p.nbands * p.region;
   return cudaSuccess;
 }
@@ -531,47 +811,38 @@ cudaError_t make_plan(bool k5, int B, int H, int W, Plan& p) {
 cudaError_t launch(bool k5, KernelArgs a, const Plan& p, float* scratch,
                    long long scratch_floats, cudaStream_t st) {
   if (scratch_floats < (long long)p.scratch) return cudaErrorInvalidValue;
-  a.nbands = p.nbands;
   a.bpj = p.bpj;
   a.hwp = p.hwp;
+  a.groups = p.groups;
+  a.kc = p.kc;
+  a.nch = p.nch;
   a.region = p.region;
   a.xch = reinterpret_cast<uint4*>(scratch);  // torch's 16-byte alignment
-  a.partials = scratch + (size_t)p.nbands * 16 * p.hwp;
-  a.regions = a.partials + 2 * (size_t)p.nbands;
-  void* kern = k5 ? (p.resident ? kernel_of<true, true>() : kernel_of<true, false>())
-                  : (p.resident ? kernel_of<false, true>() : kernel_of<false, false>());
-  if (p.resident) {
-    // raise the resident kernel's shared-memory limit once per device (the
-    // plan came from device_limits, so the device index is valid)
-    static std::once_flag once[2][MAX_DEVICES];
-    static cudaError_t raised[2][MAX_DEVICES];
-    int dev;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    std::call_once(once[k5][dev], [&] {
-      raised[k5][dev] = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_limit);
-    });
-    if (raised[k5][dev] != cudaSuccess) return raised[k5][dev];
-  }
+  a.regions = scratch + (size_t)p.nbands * 16 * p.hwp;
+  a.partials = a.regions + p.nbands * p.region;
   void* args[] = {&a};
-  return cudaLaunchCooperativeKernel(kern, dim3(p.grid), dim3(p.threads), args,
+  return cudaLaunchCooperativeKernel(kernel_of(k5, p.regime == ROW_STREAMED),
+                                     dim3(p.grid), dim3(p.threads), args,
                                      p.smem, st);
 }
 
 }  // namespace
 
-// The plan of a call at (B, H, W): out[0..7] = resident, grid, nbands, bands
-// per jet, rows per band (at most), shared bytes per block, scratch floats,
-// threads per block. k5 selects K5's kernel. Returns a cudaError_t code.
-extern "C" int sf_solve_plan(int k5, int B, int H, int W, long long* out) {
+// The plan of a call at (B, H, W): out[0..11] = regime (0 resident, 1
+// grouped, 2 row-streamed), grid, bands (B x bands per jet), bands per jet,
+// rows per band (at most), shared bytes per block, scratch floats, threads
+// per block, jets a group, groups, packed cells of a ring chunk and chunks
+// (row-streamed; else 0). K1 and K5 share the plan. Returns a cudaError_t
+// code.
+extern "C" int sf_solve_plan(int B, int H, int W, long long* out) {
   if (B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   Plan p;
-  const cudaError_t err = make_plan(k5 != 0, B, H, W, p);
+  const cudaError_t err = make_plan(B, H, W, p);
   if (err != cudaSuccess) return (int)err;
-  const long long v[8] = {p.resident, p.grid, p.nbands, p.bpj, p.rows,
-                          (long long)p.smem, (long long)p.scratch, p.threads};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  const long long v[12] = {p.regime, p.grid, p.nbands, p.bpj, p.rows,
+                           (long long)p.smem, (long long)p.scratch, p.threads,
+                           p.group, p.groups, p.kc, p.nch};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -593,7 +864,7 @@ extern "C" int sf_solve_step(const float* uu, const float* vv,
   if (B < 1 || H < 1 || W < 1 || iterations < 0 || (du == nullptr) != (dv == nullptr))
     return (int)cudaErrorInvalidValue;
   Plan p;
-  cudaError_t err = make_plan(false, B, H, W, p);
+  cudaError_t err = make_plan(B, H, W, p);
   if (err != cudaSuccess) return (int)err;
   KernelArgs a{};
   a.s = SolveArgs{uu, vv, dpsis, a11, a12, a22, b1, b2, H, W, method, alpha,
@@ -615,7 +886,7 @@ extern "C" int sf_solve_step(const float* uu, const float* vv,
 // and forms the 2x2 inverse with the neighbour-weight sum in core/solver.py's
 // order; the sweeps start from du / dv, which are read only, and end in
 // ndu / ndv. Every plane is [B, H, W]; rows: the strip table (colours only)
-// or null. scratch holds at least sf_solve_plan's scratch floats (k5 = 1).
+// or null. scratch holds at least sf_solve_plan's scratch floats.
 // Returns a cudaError_t code (0 = launched).
 extern "C" int sf_sor_coupled_rb(const float* du, const float* dv,
                                  const float* a11, const float* a12,
@@ -629,7 +900,7 @@ extern "C" int sf_sor_coupled_rb(const float* du, const float* dv,
   if (B < 1 || H < 1 || W < 1 || iterations < 0 || !du || !dv)
     return (int)cudaErrorInvalidValue;
   Plan p;
-  cudaError_t err = make_plan(true, B, H, W, p);
+  cudaError_t err = make_plan(B, H, W, p);
   if (err != cudaSuccess) return (int)err;
   KernelArgs a{};
   a.s.a11 = a11;

@@ -9,14 +9,27 @@ longer matches), built by nvcc into its own library under
 _build/variants/. Device time per call comes from torch.profiler (mean of
 10 calls after a warm-up). K1 variants run method 1 from zero with the
 change sums at 0 and 30 sweeps, so (t30 - t0) / 60 is the cost of one
-half-sweep and t0 the prologue, epilogue and launch:
-  kernel        csrc/solve_step.cu as built
-  grid_barrier  a grid-wide barrier before each half-sweep's halo fetch
-                (in place of polling the neighbours' cells alone)
-  threads_1024  1024 threads per resident block instead of 512
-  no_exchange   no publish / fetch (results wrong: isolates the exchange)
-  no_interior   boundary rows only (results wrong)
-  no_compute    exchange only, no cell updates (results wrong)
+half-sweep and t0 the prologue, epilogue and launch, on the resident,
+grouped and row-streamed paths (K1_SHAPES):
+  kernel           csrc/solve_step.cu as built
+  grid_barrier     a grid-wide barrier before each half-sweep's halo fetch
+                   (in place of polling the neighbours' cells alone)
+  threads_1024     1024 threads per block instead of 512
+  group_below_max  grouped: groups of at most G_max - 1 jets
+  ring_no_copy     row-streamed: no copy into the ring (results wrong:
+                   isolates the stream from HBM)
+  ring_no_update   row-streamed: the ring's rows land, no cell is updated
+                   (results wrong: isolates the updates)
+  no_evict_first   row-streamed: no L2 hint that evicts the copied
+                   coefficients before du / dv
+  keep_weights     row-streamed: wh and wv kept in L2 like du / dv
+  ahead2           row-streamed: rings 2 rows ahead (3 own, 4 nbr rows)
+                   for 3 (4 own, 5 nbr)
+  chunk480         row-streamed: ring rows of at most 480 packed cells
+                   (1080p rows in 2 chunks) for 960
+  no_exchange      no publish / fetch (results wrong: isolates the exchange)
+  no_interior      on chip: boundary rows only (results wrong)
+  no_compute       on chip: exchange only, no cell updates (results wrong)
 K2 (`assembly`, zero_duv, 4 x 270 x 480):
   kernel        csrc/warp_assemble.cu as built
   load_only     the load phase (warp into shared memory) and one store
@@ -71,11 +84,24 @@ import torch
 
 from . import kernels
 
-K1_FETCH = """      if (t > 0) {  // the neighbours' colour c ^ 1 of half-sweep t - 1
-        fetch_halo(a, d, c ^ 1, (unsigned)t, tid, nt);"""
-K1_BOUNDARY = """      half_sweep(d, W, a.hwp, c, a.omega, 0, edges, d.rows - 1, tid, nt);"""
-K1_PUBLISH = """      publish(a, d, c, (unsigned)t + 1);"""
-K1_INTERIOR = """      half_sweep(d, W, a.hwp, c, a.omega, 1, d.rows - 2, 1, tid, nt);"""
+K1_FETCH = """        if (t > 0) {  // the neighbours' colour c ^ 1 of half-sweep t - 1
+          fetch_halo(a, d, c ^ 1, (unsigned)t, tid, NT);"""
+K1_BOUNDARY = """        half_sweep(d, W, a.hwp, c, a.omega, 0, edges, d.rows - 1, tid, NT);"""
+K1_PUBLISH = """        publish(a, d, c, (unsigned)t + 1);"""
+K1_INTERIOR = """        half_sweep(d, W, a.hwp, c, a.omega, 1, d.rows - 2, 1, tid, NT);"""
+K1_GROUPS = "p.groups = (B + gmax - 1) / gmax;"
+K1_RING_EXPECT = ("bar_expect(bar(q), 4u * (nw * (hi - lo) + (nwv + no) * "
+                  "kc));")
+K1_RING_COPIES = """    for (int w = 0; w < nw; ++w)
+      bulk_copy(s + w * (a.kc + 8) + lo - (k0 - 4),
+                (w == 0 ? d.du : w == 1 ? d.dv : d.wh) + r + lo,
+                4u * (hi - lo), bar(q), w == 2);
+    if (nwv) bulk_copy(s + L.nwv, d.wv + r + k0, 4u * kc, bar(q), true);
+    for (int w = 0; w < no; ++w)
+      bulk_copy(own_row(q) + w * a.kc, own[w] + o + k0, 4u * kc, bar(q),
+                w > 1);
+"""
+K1_EVICT = "  if (first)\n    asm volatile(\"createpolicy.fractional.L2::evict_first"
 K2_ASSEMBLE = """  assemble_tile<MODE, ZERO_DUV>(P, frames, sx, sy, cw, du, dv, out, b, B, H,
                                 W, x0, y0, mask_of);"""
 K2_STORE = """  if (gx < W && gy < H)
@@ -106,10 +132,28 @@ K7_INSTANCE = ("2 * p + 1 == CLI_Q ? grid_match_kernel<CLI_Q> : "
 VARIANTS = {
     "solve_step.cu": {
         "grid_barrier": {"solve_step.cu": {K1_FETCH: K1_FETCH.replace(
-            "fetch_halo(", "grid.sync();\n        fetch_halo(")}},
+            "fetch_halo(", "grid.sync();\n          fetch_halo(")}},
         "threads_1024": {"solve_step.cu": {
-            "constexpr int NT_RESIDENT = 512,":
-            "constexpr int NT_RESIDENT = 1024,"}},
+            "constexpr int NT = 512;": "constexpr int NT = 1024;"}},
+        "group_below_max": {"solve_step.cu": {K1_GROUPS: K1_GROUPS.replace(
+            "gmax", "std::max(1, gmax - 1)")}},
+        "ring_no_copy": {"solve_step.cu": {
+            K1_RING_EXPECT: 'asm volatile("mbarrier.arrive.shared::cta.b64 '
+                            '_, [%0];" ::"r"(smem_addr(bar(q))) : "memory");',
+            K1_RING_COPIES: "    (void)s;\n    (void)own;\n"}},
+        "ring_no_update": {"solve_step.cu": {"      if (j < W) {":
+                                             "      if (false) {"}},
+        "no_evict_first": {"solve_step.cu": {K1_EVICT: K1_EVICT.replace(
+            "(first)", "(false)")}},
+        "keep_weights": {"solve_step.cu": {
+            "4u * (hi - lo), bar(q), w == 2);": "4u * (hi - lo), bar(q), false);",
+            "d.wv + r + k0, 4u * kc, bar(q), true);":
+            "d.wv + r + k0, 4u * kc, bar(q), false);",
+            "bar(q),\n                w > 1);": "bar(q),\n                w > 3);"}},
+        "ahead2": {"solve_step.cu": {"constexpr int AHEAD = 3;":
+                                     "constexpr int AHEAD = 2;"}},
+        "chunk480": {"solve_step.cu": {"constexpr int CHUNK = 960;":
+                                       "constexpr int CHUNK = 480;"}},
         "no_exchange": {"solve_step.cu": {K1_FETCH: "      if (false) {",
                                           K1_PUBLISH: ""}},
         "no_interior": {"solve_step.cu": {K1_INTERIOR: ""}},
@@ -154,7 +198,10 @@ VARIANTS = {
 }
 K7_SHAPES = (("stage2", 4, 50), ("stage1", 40, 32))   # chip_smoke's scenes
 K3_MODES = (("assembly", True), ("occ", True), ("occ_assembly", True))
-K1_SHAPES = ((4, 270, 480), (4, 176, 314), (4, 51, 90))
+# resident (the bench shape, its coarsest level, a small one), grouped (2
+# and 8 groups), row-streamed (1080p, 2160p)
+K1_SHAPES = ((4, 270, 480), (4, 176, 314), (4, 51, 90), (8, 270, 480),
+             (40, 270, 480), (1, 1080, 1920), (1, 2160, 3840))
 
 
 def build_variants(only=None) -> dict:
@@ -234,8 +281,8 @@ def _k1(lib, b, h, w, iterations, dev):
     t = [torch.tensor(x, dtype=torch.float32, device=dev) for x in planes]
     ndu, ndv = torch.empty((2, b, h, w), device=dev)
     sums = torch.empty((b, 2), device=dev)
-    plan = (ctypes.c_longlong * 8)()
-    kernels.check(lib.sf_solve_plan(0, b, h, w, plan), "sf_solve_plan")
+    plan = (ctypes.c_longlong * 12)()
+    kernels.check(lib.sf_solve_plan(b, h, w, plan), "sf_solve_plan")
     scratch = torch.empty(plan[6], device=dev)
     fct, eps_sq, trunc, trunc_val = MultiFrameParams().penalties()[2] \
         .kernel_args()

@@ -47,8 +47,8 @@ _SIGNATURES = {
     # reg_trunc, reg_trunc_val, alpha, iterations, omega, stream
     "sf_solve_step": [_P] * 13 + [_L, _P, _P] + [_I] * 5 + [_F] * 4
                      + [_I, _F, _P],
-    # k5, B, H, W, out (8 int64: the band plan of K1 / K5)
-    "sf_solve_plan": [_I] * 4 + [_P],
+    # B, H, W, out (12 int64: the plan of K1 / K5)
+    "sf_solve_plan": [_I] * 3 + [_P],
     # warped, mask, du, dv, cw, out, B, H, W, mode, zero_duv,
     # params (host), n_params, stream
     "sf_fused_data": [_P] * 6 + [_I] * 5 + [_P, _I, _P],

@@ -1,8 +1,12 @@
 """The one-launch K1 / K5 (csrc/solve_step.cu), the K2 / K3 assembly
 kernels and the K4 / K6 warp kernel against their plain twins on the card,
 at the shapes that reach their edge cases: odd H and W, widths under one
-warp, a single jet, B = 16 (K1 / K5's streaming path), 0 / 1 / 30 sweeps,
-with and without du / dv and the change sums; K2 and K3 in every mode at
+warp, a single jet, B = 16 (K1 / K5's grouped path), 0 / 1 / 30 sweeps,
+with and without du / dv and the change sums; K1 / K5's plan against
+`fused_solve.plan_model`, and their grouped (even and uneven groups, odd H
+and W) and row-streamed paths bitwise equal to the jets solved one at a
+time, with strip tables of odd first rows and inside a CUDA graph; K2 and
+K3 in every mode at
 odd shapes and window sizes S = 2 and 4 (S = 1 has no offsets and no data
 term), K3's tiles at every image edge and on K4's stack against K2; K4 and
 K6's entry at W < 4 and W not a multiple of 4, B = 1, F = 16, the identity
@@ -20,6 +24,7 @@ import torch
 
 from slowflow_tpu_torch.core import (solver, solver_pallas, warp_pallas,
                                      warp_shift)
+from slowflow_tpu_torch.core.rows import StripRows
 from slowflow_tpu_torch.variational import (fused_data, fused_solve,
                                             fused_warp, terms)
 from slowflow_tpu_torch.variational.params import MultiFrameParams
@@ -96,10 +101,12 @@ def test_sor_kernel_edge_shapes(cuda_device, shape, iterations):
 
 @pytest.mark.cuda
 def test_solve_step_plans_and_repeatable_sums(cuda_device):
-    """4 x 270 x 480 fits the blocks' shared memory, 16 x 270 x 480 streams;
-    the change sums are bit-identical from run to run on both paths."""
+    """4 x 270 x 480 fits the blocks' shared memory, 16 x 270 x 480 takes
+    the grouped path, 4 groups; the change sums are bit-identical from run
+    to run on both paths."""
     assert fused_solve.solve_plan(4, 270, 480).resident
-    assert not fused_solve.solve_plan(16, 270, 480).resident
+    plan = fused_solve.solve_plan(16, 270, 480)
+    assert (plan.regime, plan.groups) == ("grouped", 4)
     _, _, reg = P.penalties()
     kw = dict(alpha=P.alpha, reg_pen=reg, method=1, iterations=30,
               omega=1.9, with_change=True)
@@ -243,3 +250,139 @@ def test_warp_bilinear_entry_without_mask_bit_equal(cuda_device, motion):
     assert mask is None
     want, _ = warp_pallas.warp_bilinear(seq[:, 0], wx, wy, 1.5)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _plan_model(device):
+    props = torch.cuda.get_device_properties(device)
+    return lambda *shape: fused_solve.plan_model(
+        *shape, nsm=props.multi_processor_count,
+        optin=props.shared_memory_per_block_optin)
+
+
+@pytest.mark.cuda
+def test_solve_plan_matches_model(cuda_device):
+    """The kernel library's plan equals the Python mirror over every regime."""
+    model = _plan_model(cuda_device)
+    regimes = set()
+    for b in (1, 2, 3, 4, 5, 7, 8, 16, 40, 133):
+        for h, w in ((270, 480), (271, 479), (176, 314), (540, 960),
+                     (1080, 1920), (1207, 3840), (2160, 3840), (9, 1),
+                     (1, 33)):
+            got = fused_solve.solve_plan(b, h, w)
+            assert got == model(b, h, w), (b, h, w)
+            regimes.add(got.regime)
+    assert regimes == set(fused_solve.REGIMES)
+
+
+# (shape, regime): the grouped path in even and uneven groups and at odd H
+# and W, one jet a group at 540 x 960, and the row-streamed path at 1080p
+# (even and odd H and W), where the jets alone stream too but in other bands
+REGIME_SHAPES = [((40, 270, 480), "grouped"), ((8, 270, 480), "grouped"),
+                 ((7, 270, 480), "grouped"), ((9, 271, 479), "grouped"),
+                 ((3, 540, 960), "grouped"),
+                 ((2, 1080, 1920), "row-streamed"),
+                 ((2, 1081, 1921), "row-streamed")]
+
+
+def _per_jet(call, planes, b):
+    """`call` on each jet alone, the outputs stacked again."""
+    outs = [call([None if x is None else x[i:i + 1] for x in planes])
+            for i in range(b)]
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
+def _regime_calls(t, iterations, given, rows=None):
+    """K1 (with sums) and K5 on the planes `t` of _solve_inputs."""
+    _, _, reg = P.penalties()
+    kw = dict(alpha=P.alpha, reg_pen=reg, method=1, iterations=iterations,
+              omega=1.9, with_change=True)
+
+    def k1(x, rows=rows, ref=False):
+        fn = fused_solve.solve_step_ref if ref else fused_solve.solve_step
+        return fn(*x[:8], *(x[8:10] if given else (None, None)), **kw,
+                  rows=rows)
+
+    def k5(x, rows=rows, ref=False):
+        fn = solver.sor_coupled_rb if ref else \
+            solver_pallas.sor_coupled_rb_pallas
+        return fn(x[8], x[9], *x[3:8], x[10], x[11], iterations=iterations,
+                  omega=1.9, rows=rows)
+    return k1, k5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations", [0, 1, 30])
+@pytest.mark.parametrize("case", REGIME_SHAPES,
+                         ids=lambda c: "x".join(map(str, c[0])))
+def test_solve_regimes_bitwise_per_jet(cuda_device, case, iterations):
+    """K1 and K5 on the grouped and row-streamed paths: du / dv bitwise
+    the jets solved one at a time (B = 1: resident, or row-streamed in
+    other bands), within the twin's bound; K1's sums within it too and
+    bit-identical over 20 runs."""
+    shape, regime = case
+    b = shape[0]
+    assert fused_solve.solve_plan(*shape).regime == regime
+    t = _solve_inputs(*shape, 48, cuda_device)
+    for given in (False, True):
+        k1, k5 = _regime_calls(t, iterations, given)
+        for name, call in (("K1", k1), ("K5", k5)):
+            got = call(t)
+            alone = _per_jet(call, t, b)
+            for g, a in zip(got[:2], alone[:2]):
+                assert torch.equal(g, a), (name, given)
+            want = call(t, ref=True)
+            for g, w in zip(got, want):
+                assert _rel(g.cpu(), w.cpu()) <= TOL, (name, given)
+        first = k1(t)[2]
+        for _ in range(20):
+            assert torch.equal(k1(t)[2], first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [REGIME_SHAPES[2], REGIME_SHAPES[6]],
+                         ids=lambda c: "x".join(map(str, c[0])))
+def test_solve_regimes_strip_rows(cuda_device, case):
+    """Strip windows with odd first image rows and own-row ranges on both
+    new paths: bitwise the windows solved one at a time, within the twin's
+    bound."""
+    shape, regime = case
+    b, h, w = shape
+    assert fused_solve.solve_plan(*shape).regime == regime
+    t = _solve_inputs(*shape, 49, cuda_device)
+    first = [2 * e + 1 for e in range(b)]
+    table = torch.tensor([[f, 3 - e % 2, h - 2 - e % 3] for e, f in
+                          enumerate(first)], dtype=torch.int32,
+                         device=cuda_device)
+    rows = StripRows(table, h + 2 * b + 1)
+    k1, k5 = _regime_calls(t, 30, True, rows)
+    for name, call in (("K1", k1), ("K5", k5)):
+        got = call(t)
+        alone = [call([x[e:e + 1] for x in t],
+                      rows=StripRows(table[e:e + 1].contiguous(),
+                                     rows.img_h)) for e in range(b)]
+        for i, g in enumerate(got[:2]):
+            assert torch.equal(g, torch.cat([a[i] for a in alone])), name
+        for g, w in zip(got, call(t, ref=True)):
+            assert _rel(g.cpu(), w.cpu()) <= TOL, name
+
+
+@pytest.mark.cuda
+def test_solve_grouped_call_replays_in_a_graph(cuda_device):
+    """A grouped K1 / K5 call captured in a CUDA graph replays bitwise its
+    eager result."""
+    t = _solve_inputs(8, 270, 480, 50, cuda_device)
+    k1, k5 = _regime_calls(t, 30, True)
+    for call in (k1, k5):
+        eager = call(t)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            call(t)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call(t)
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(out, eager):
+            assert torch.equal(o, e)

@@ -14,7 +14,7 @@ solve's CUDA graph on the card.
   threads launching on two streams at once, each equal to its own launch
   alone; bad inputs raise.
 - `variational_twoframe_batched` through its CUDA graph bitwise equal to
-  the eager solve (`_eager=True`) at B = 40 (K5's streaming path) and
+  the eager solve (`_eager=True`) at B = 40 (K5's grouped path) and
   B = 1, with the second call replaying and capturing nothing.
 Every test needs a CUDA GPU and skips without one.
 
