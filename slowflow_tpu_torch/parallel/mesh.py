@@ -122,17 +122,18 @@ def shard_jet_batch(mesh, *tensors, spatial_axis: int | None = None
     return out
 
 
-# one host thread per mesh position, kept from call to call
+# one host thread per mesh position (and per rank of the row split), kept
+# from call to call
 _WORKERS: dict = {}
 _workers_lock = threading.Lock()
 
 
-def _worker(i: int) -> ThreadPoolExecutor:
+def _worker(i: int, kind: str = "shard") -> ThreadPoolExecutor:
     with _workers_lock:
-        if i not in _WORKERS:
-            _WORKERS[i] = ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix=f"shard{i}")
-        return _WORKERS[i]
+        if (kind, i) not in _WORKERS:
+            _WORKERS[kind, i] = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=f"{kind}{i}")
+        return _WORKERS[kind, i]
 
 
 def run_sharded(mesh, fn, *tensors):

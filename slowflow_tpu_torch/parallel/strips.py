@@ -36,21 +36,36 @@ every device. Before each warp `cover` reads max|wy| and, when the flow has
 outgrown the windows, widens every window from the owners of its rows.
 
 A device's share is a `Strips`; with several devices each runs on a host
-thread of its own and the collectives meet at a barrier. Without a plan
-(`strips=None`) the level pays nothing.
+thread of its own, the same one from call to call, and the collectives meet
+at a barrier. Without a plan (`strips=None`) the level pays nothing.
+
+On CUDA the level with strips replays CUDA graphs (variational/
+multiframe.py, variational/graphs.py), one Program per window geometry, so
+a `Strips` never changes: `cover` hands back the Geometry of the wider
+windows, and a Program keeps the Strips whose tables its graphs read, lent
+to each later call's plan (`rejoin`). With one rank every collective is
+device work and a segment captures whole. With several, the collectives'
+host work (the syncs, the allgathers, the copies between devices) is a
+`graphs.host_step`, where a capture is cut, and the exchange counter a
+`graphs.count`, which each replay runs. The ranks' threads run nothing
+else and take the calls in one order, so their Programs are made,
+replayed and dropped in the same order and every rank captures, and cuts,
+at the same points.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..core.rows import StripRows, own_rows
+from ..variational import graphs
 
 
 def strip_bounds(h: int, n_sp: int) -> list[int]:
@@ -124,6 +139,14 @@ class _Group:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
+
+
+def _strip_total(parts: torch.Tensor) -> torch.Tensor:
+    """[B, n_sp, ...] partials -> [B, ...] totals, added in strip order."""
+    total = parts[:, 0]
+    for s in range(1, parts.shape[1]):
+        total = total + parts[:, s]
+    return total
 
 
 def _take(x, e, r):
@@ -216,29 +239,63 @@ class Strips:
     """One device's share of a `StripPlan` (rank `rank`) and the exchanges
     and reductions of `compute_one_level` over it."""
 
-    def __init__(self, plan: StripPlan, rank: int):
+    def __init__(self, plan: StripPlan, rank: int,
+                 geometry: Geometry | None = None):
         self.plan, self.rank = plan, rank
         self.device = plan.devices[rank]
         self.entries = plan.local[rank]
         self.img_h = plan.img_h
-        self.jets = torch.tensor([g // plan.n_sp for g in self.entries],
-                                 device=self.device)
-        self._set(plan.geometry)
-
-    def _set(self, geo: Geometry) -> None:
-        self.geometry = geo
-        n = self.plan.n_sp
+        geo = self.geometry = geometry or plan.geometry
+        n = plan.n_sp
         table = []
         for g in self.entries:
             s = g % n
             lo = geo.bounds[s] - geo.starts[s]
             table.append((geo.starts[s], lo,
                           lo + geo.bounds[s + 1] - geo.bounds[s]))
-        self.rows = StripRows(torch.tensor(table, dtype=torch.int32,
-                                           device=self.device), self.img_h)
-        self.own = own_rows(self.rows, geo.win_h)
-        self._ghost_moves = self._to_device(
-            self.plan.moves(geo, geo, ghosts_only=True))
+        self.table = tuple(table)
+
+    # The device tables are made on first use, in a segment's eager run
+    # (never in a capture), and then kept: a Strips that a Program's kept
+    # one stands in for uploads nothing.
+    @functools.cached_property
+    def jets(self) -> torch.Tensor:
+        return torch.tensor([g // self.plan.n_sp for g in self.entries],
+                            device=self.device)
+
+    @functools.cached_property
+    def rows(self) -> StripRows:
+        return StripRows(torch.tensor(self.table, dtype=torch.int32,
+                                      device=self.device), self.img_h)
+
+    @functools.cached_property
+    def own(self) -> torch.Tensor:
+        return own_rows(self.rows, self.geometry.win_h)
+
+    @functools.cached_property
+    def _ghost_moves(self) -> dict:
+        return self._to_device(self.plan.moves(self.geometry, self.geometry,
+                                               ghosts_only=True))
+
+    def key(self) -> tuple:
+        """What fixes this rank's windows and collectives: the image
+        height, the strips, the ghost depth and window height, the rank,
+        the ranks' devices and entries, and each window's (start, lo, hi)
+        rows."""
+        plan, geo = self.plan, self.geometry
+        return (plan.img_h, plan.n_sp, geo.ghost, geo.win_h, self.rank,
+                tuple(map(str, plan.devices)),
+                tuple(map(tuple, plan.local)), self.table)
+
+    def rejoin(self, plan: StripPlan) -> "Strips":
+        """These windows (kept by a Program from an earlier call of the same
+        key) with the collectives and counters of `plan`."""
+        self.plan = plan
+        return self
+
+    def widened(self, geometry: Geometry) -> "Strips":
+        """This rank's share of the plan in the windows of `geometry`."""
+        return Strips(self.plan, self.rank, geometry)
 
     def _to_device(self, moves: dict) -> dict:
         return {k: tuple(torch.as_tensor(a, device=self.plan.devices[
@@ -247,29 +304,37 @@ class Strips:
 
     def _move(self, moves: dict, srcs, dsts) -> None:
         """dsts[i] rows <- srcs[i] rows along `moves` (every rank calls)."""
-        me, group = self.rank, self.plan.group
-        if group.n > 1:
-            send = {dr: [_take(x, m[0], m[1]) for x in srcs]
-                    for (sr, dr), m in moves.items() if sr == me and dr != me}
-            _sync(self.device)
-            inbox = group.allgather(me, send)
+        me = self.rank
+        send = {dr: [_take(x, m[0], m[1]) for x in srcs]
+                for (sr, dr), m in moves.items() if sr == me and dr != me}
         local = moves.get((me, me))
         if local is not None:
             for x, y in zip(srcs, dsts):
                 _put(y, local[2], local[3], _take(x, local[0], local[1]))
-        if group.n > 1:
-            for q, box in enumerate(inbox):
-                if q != me and me in box:
-                    m = moves[(q, me)]
-                    for y, v in zip(dsts, box[me]):
-                        _put(y, m[2], m[3], v.to(self.device))
-            _sync(self.device)
-            group.barrier.wait()
+        if self.plan.group.n > 1:
+            graphs.host_step(lambda: self._swap(moves, send, dsts))
+
+    def _swap(self, moves: dict, send: dict, dsts) -> None:
+        """`_move`'s collective: every rank's rows for the others, then
+        this rank's share of them into `dsts`."""
+        me, group = self.rank, self.plan.group
+        _sync(self.device)
+        inbox = group.allgather(me, send)
+        for q, box in enumerate(inbox):
+            if q != me and me in box:
+                m = moves[(q, me)]
+                for y, v in zip(dsts, box[me]):
+                    _put(y, m[2], m[3], v.to(self.device))
+        _sync(self.device)
+        group.barrier.wait()
 
     def exchange(self, *ts: torch.Tensor) -> None:
         """Refresh the ghost rows of [E, ..., H_win, W] tensors in place
         from their owners."""
         self._move(self._ghost_moves, ts, ts)
+        graphs.count(self._count_exchange)
+
+    def _count_exchange(self) -> None:
         if self.rank == 0:
             self.plan.exchanges += 1
 
@@ -288,24 +353,26 @@ class Strips:
         (in strip order), per entry."""
         plan = self.plan
         if plan.group.n == 1:
-            parts = x.view(plan.b, plan.n_sp, *x.shape[1:]).unbind(1)
+            total = _strip_total(x.view(plan.b, plan.n_sp, *x.shape[1:]))
         else:
-            every = plan.group.allgather(self.rank, x.cpu())
-            full = torch.empty((plan.b * plan.n_sp, *x.shape[1:]),
-                               dtype=x.dtype)
-            for r, part in enumerate(every):
-                full[plan.local[r]] = part
-            parts = full.view(plan.b, plan.n_sp, *x.shape[1:]).unbind(1)
-        total = parts[0]
-        for part in parts[1:]:
-            total = total + part
-        return total.to(self.device)[self.jets]
+            total = graphs.host_step(lambda: self._gathered_total(x))
+        return total[self.jets]
+
+    def _gathered_total(self, x: torch.Tensor) -> torch.Tensor:
+        """`jet_sum`'s collective: every jet's total on this device."""
+        plan = self.plan
+        every = plan.group.allgather(self.rank, x.cpu())
+        full = torch.empty((plan.b * plan.n_sp, *x.shape[1:]), dtype=x.dtype)
+        for r, part in enumerate(every):
+            full[plan.local[r]] = part
+        return _strip_total(full.view(plan.b, plan.n_sp,
+                                      *x.shape[1:])).to(self.device)
 
     def cover(self, wy: torch.Tensor, *ts: torch.Tensor):
         """None while the windows hold every row the warp by `wy` reads
         with a nonzero weight; else every window is widened to just cover
         it, and the widened copies of the [E, ..., H_win, W] tensors `ts`
-        are returned."""
+        are returned with the wider windows' Geometry."""
         plan, old = self.plan, self.geometry
         m = max(plan.group.allgather(self.rank, float(wy.abs().amax())))
         need = plan.cone + reach_rows(plan.p, m)
@@ -316,11 +383,16 @@ class Strips:
         outs = [x.new_empty((*x.shape[:-2], new.win_h, x.shape[-1]))
                 for x in ts]
         self._move(moves, ts, outs)
-        self._set(new)
         if self.rank == 0:
             plan.geometry = new
             plan.widenings += 1
-        return outs
+        return outs, new
+
+
+# A call's ranks meet at barriers, so every rank's worker thread must take
+# the calls in one order: two callers whose ranks were queued in different
+# orders would each wait for a rank queued behind the other's.
+_submit_lock = threading.Lock()
 
 
 def run_strips(mesh, p, wx, wy, seq, channel_w, norm_avg, norm_std):
@@ -331,6 +403,7 @@ def run_strips(mesh, p, wx, wy, seq, channel_w, norm_avg, norm_std):
     and the plan (its exchanges and widenings)."""
     from ..runtime import on_device
     from ..variational.multiframe import compute_one_level
+    from .mesh import _worker
 
     b, _, _, h, _ = seq.shape
     n_jet, n_sp = mesh.n_jet, mesh.n_sp
@@ -372,8 +445,10 @@ def run_strips(mesh, p, wx, wy, seq, channel_w, norm_avg, norm_std):
     if len(plan.devices) == 1:
         outs = [work(0)]
     else:
-        with ThreadPoolExecutor(max_workers=len(plan.devices)) as ex:
-            futures = [ex.submit(work, r) for r in range(len(plan.devices))]
+        with _submit_lock:
+            futures = [_worker(r, "strip-rank").submit(work, r)
+                       for r in range(len(plan.devices))]
+        wait(futures)
         # the rank that failed first, not one that found the barrier broken
         errors = [e for e in (f.exception() for f in futures) if e]
         errors.sort(key=lambda e: isinstance(e, threading.BrokenBarrierError))

@@ -36,6 +36,18 @@ failed capture or replay raises; nothing falls back to the eager code.
 `Eager` stands in for a Program on the eager path (the CPU, and the eager
 switches that tests and chip_smoke.py use).
 
+Host work inside a segment. A collective over several host threads (the
+row split's exchanges and sums over ranks, parallel/strips.py) is a
+`host_step`: eagerly it runs where it stands; in a capture it cuts the
+segment, so the graph of the part before it ends, the step runs with no
+capture underway on this thread (and without the capture lock, which the
+other ranks need to capture up to the same step), and the next part is
+captured into the same pool. A replay runs the parts and the steps in that
+order; a step's result lands in the tensors its first run returned, which
+keep their addresses. A host-side counter of a segment (`count`) runs
+eagerly, and in a capture is kept with the graph and run by each replay,
+as the kernels' launch counts are.
+
 Memory: a capture cannot hand cached memory back to the device (the
 caching allocator frees nothing while any capture is underway), and a
 closed Program's pool stays reserved until the cache is emptied. So a
@@ -110,6 +122,40 @@ def level_key(device, p, b: int, h: int, w: int, first_system: bool):
     dataclass, so hashable), their route, the batch and image size, and
     whether the alternation top assembles and solves a first system."""
     return (torch.device(device), p, p.route(), b, h, w, bool(first_system))
+
+
+@contextlib.contextmanager
+def cutting(capture):
+    """While open, this thread's host steps run through `capture.cut(step)`
+    and its counts are appended to `capture.counts` (a capture in parts;
+    the CPU tests' stand-ins record the cuts the same way)."""
+    before = getattr(_local, "capture", None)
+    _local.capture = capture
+    try:
+        yield capture
+    finally:
+        _local.capture = before
+
+
+def host_step(step):
+    """step(): host work in the middle of a segment (a collective over host
+    threads). It must read and write only tensors that keep their
+    addresses: slots, tensors made earlier in the segment, and the tensors
+    it returns (None or a tensor or tuple of them), into which a replay
+    copies its result. In a capture it cuts the segment (module
+    docstring)."""
+    capture = getattr(_local, "capture", None)
+    return step() if capture is None else capture.cut(step)
+
+
+def count(fn) -> None:
+    """fn(): a host-side counter of a segment. In a capture it is kept with
+    the graph instead and run by each replay."""
+    capture = getattr(_local, "capture", None)
+    if capture is None:
+        fn()
+    else:
+        capture.counts.append(fn)
 
 
 def _clone(x):
@@ -189,10 +235,69 @@ class Eager:
         fn()
 
 
+class _Capture:
+    """One segment captured into a Program's pool, cut at its host steps:
+    the steps a replay runs in order (each part's graph replay, the host
+    steps between them), the kernel launches counted at capture, and the
+    counts each replay runs."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.graphs: list = []
+        self.steps: list = []
+        self.launches: dict = {}
+        self.counts: list = []
+        self._graph = None
+
+    def begin(self) -> None:
+        self._graph = torch.cuda.CUDAGraph()
+        self._graph.capture_begin(pool=self.pool,
+                                  capture_error_mode="thread_local")
+
+    def end(self) -> None:
+        graph, self._graph = self._graph, None
+        graph.capture_end()
+        self.graphs.append(graph)
+        self.steps.append(graph.replay)
+
+    def abandon(self) -> None:
+        """End a capture that fn's error left underway."""
+        if self._graph is not None:
+            try:
+                self._graph.capture_end()
+            except RuntimeError:
+                pass  # the capture was invalidated; fn's error stands
+
+    def cut(self, step):
+        self.end()
+        _capture_lock.release()
+        try:
+            out = step()
+        finally:
+            _capture_lock.acquire()
+        self.steps.append(step if out is None
+                          else lambda: _copy_into(out, step()))
+        self.begin()
+        return out
+
+    def replay(self) -> None:
+        for step in self.steps:
+            step()
+        kernels.add_launches(self.launches)
+        for fn in self.counts:
+            fn()
+
+    def reset(self) -> None:
+        for graph in self.graphs:
+            graph.reset()
+
+
 class Program:
     """One shape's graphs: `inputs` and `state` are its Slots, `run`
     replays a segment's graph, capturing it on the segment's first run;
-    every graph is captured into the Program's one memory pool."""
+    every graph is captured into the Program's one memory pool. `keep`
+    holds what else the graphs read by address (a strip layout), for as
+    long as the Program lives."""
 
     graphed = True
 
@@ -202,6 +307,7 @@ class Program:
         self.state = Slots()
         self.graphs: dict = {}
         self.level = None     # the segments' owner, set by the caller
+        self.keep = None
         self.pool = torch.cuda.graph_pool_handle()
         self.released = None  # a shared Program: its last borrower's work
         self._side = torch.cuda.Stream(self.device)
@@ -211,15 +317,12 @@ class Program:
         eagerly on the side stream and then captured."""
         entry = self.graphs.get(segment)
         if entry is not None:
-            graph, counts = entry
-            graph.replay()
-            kernels.add_launches(counts)
+            entry.replay()
             _add_stat("replays", 1)
             return
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         self._side.wait_stream(current)
-        graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(self._side):
             base = torch.cuda.memory_allocated(self.device)
             fn()
@@ -227,20 +330,18 @@ class Program:
             with _capture_lock:
                 if torch.cuda.mem_get_info(self.device)[0] < need:
                     release_cached_memory("before_capture")
-                with kernels.recording() as counts:
-                    graph.capture_begin(pool=self.pool,
-                                        capture_error_mode="thread_local")
+                entry = _Capture(self.pool)
+                with kernels.recording() as launches, cutting(entry):
+                    entry.begin()
                     try:
                         fn()
+                        entry.end()
                     except BaseException:
-                        try:
-                            graph.capture_end()
-                        except RuntimeError:
-                            pass  # the capture was invalidated; fn's error
+                        entry.abandon()
                         raise
-                    graph.capture_end()
+                entry.launches = launches
         current.wait_stream(self._side)
-        self.graphs[segment] = (graph, counts)
+        self.graphs[segment] = entry
         _add_stat("captures", 1)
         _add_stat("capture_s", time.perf_counter() - t0)
 
@@ -249,10 +350,10 @@ class Program:
         then hands the memory back to the device)."""
         with _capture_lock:
             torch.cuda.synchronize(self.device)
-            for graph, _ in self.graphs.values():
-                graph.reset()
+            for entry in self.graphs.values():
+                entry.reset()
             self.graphs.clear()
-            self.inputs = self.state = self.level = None
+            self.inputs = self.state = self.level = self.keep = None
 
 
 def _close(progs) -> None:

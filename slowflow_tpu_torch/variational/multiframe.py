@@ -9,9 +9,11 @@ loop-exit tests read `live.any()` on the host once per iteration.
 A level is cut into segments that read nothing on the host (`_Level`):
 the start, the alternation top, one outer iteration, one further inner
 iteration, the outer tail, the alternation end; the host loop reads the
-exit flags between them. On CUDA (without strips) each segment replays a
-cached CUDA graph (variational/graphs.py), the counterpart of the JAX
-package's jit: the same kernels in the same order, bitwise the eager level.
+exit flags between them. On CUDA each segment replays a cached CUDA graph
+(variational/graphs.py), the counterpart of the JAX package's jit: the same
+kernels in the same order, bitwise the eager level. With strips each window
+geometry has its own graphs (`_GraphedStrips`), and the collectives between
+devices run on the host between a segment's captured parts.
 
 The kernels that carry one level follow `p.route()` (params.py):
   merged   the state is the flow itself; K2 warps and assembles per call;
@@ -38,10 +40,12 @@ With a strip plan (`strips`, parallel/strips.py) the batch holds strip
 windows of taller images: the kernels take the windows' places, the ghost
 rows are refreshed after each solve and each relabel, per-jet sums cover
 own rows and add over a jet's strips, and the windows widen before a warp
-when the flow outgrows them. Without one every hook is skipped.
+when the flow outgrows them (`_Level.widen`). Without one every hook is
+skipped.
 """
 from __future__ import annotations
 
+import contextlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -146,7 +150,8 @@ class _Level(graphs.Segments):
     strips with `strips`); in a graph program (variational/graphs.py) `st`
     is that program's Slots, a segment writes `flag` = live.any() and the
     host reads it between replays, and the ICM runs its sweeps with no
-    per-sweep read."""
+    per-sweep read. With strips the host read ORs the flag over every
+    rank."""
 
     def __init__(self, seq, channel_w, norm_avg, norm_std,
                  p: MultiFrameParams, strips=None, st=None):
@@ -190,11 +195,11 @@ class _Level(graphs.Segments):
 
     # ------------------------------------------------------ host reads
     def read(self) -> bool:
-        """Whether any jet of the last marked flag is live (over a jet's
-        strips with `strips`)."""
-        if self.graphed or self.strips is None:
+        """Whether any jet of the last marked flag is live (over every
+        rank's strips with `strips`)."""
+        if self.strips is None:
             return super().read()
-        return self.strips.any(self.marked)
+        return self.strips.any(self.st.flag if self.graphed else self.marked)
 
     # ---------------------------------------------------------- helpers
     def entry_sum(self, x):
@@ -215,10 +220,16 @@ class _Level(graphs.Segments):
             return
         wider = strips.cover(st.wy, self.seq, self.channel_w, st.wx, st.wy,
                              st.occ)
-        if wider is None:
-            return
-        self.seq, self.channel_w, st.wx, st.wy, st.occ = wider
+        if wider is not None:
+            self.widen(*wider)
+
+    def widen(self, ts, geometry):
+        """Go on in the wider windows of `geometry`; ts = (seq, channel_w,
+        wx, wy, occ) widened."""
+        st = self.st
+        self.strips = strips = self.strips.widened(geometry)
         self.rows = strips.rows
+        self.seq, self.channel_w, st.wx, st.wy, st.occ = ts
         st.dpsis = self._dpsis()
         self._bind()
 
@@ -393,6 +404,71 @@ class _Level(graphs.Segments):
             run(("end",), self.end)
 
 
+class _GraphedStrips(_Level):
+    """A level with strips in its graph form. Each window geometry has its
+    Program (`graphs.running` under `graphs.level_key` and `Strips.key`),
+    which keeps the Strips whose tables its graphs read. A widening moves
+    the level into the Program of the wider windows: the widened inputs,
+    flow and labels, dpsis on them, and the per-jet state that later
+    segments read before they write it, copied into its Slots."""
+
+    CARRY = ("alive", "live", "change", "stable")
+
+    def __init__(self, seq, channel_w, norm_avg, norm_std,
+                 p: MultiFrameParams, strips, programs):
+        self.programs = programs    # an ExitStack that enters each Program
+        # the strips come with the first Program (`_enter`): a kept Strips
+        # stands in for `strips`, whose device tables are then never made
+        super().__init__(seq, channel_w, norm_avg, norm_std, p,
+                         st=graphs.Slots())
+        self._enter(strips, seq, channel_w, {})
+
+    def _enter(self, strips, seq, channel_w, carry):
+        b, _, _, h, w = seq.shape
+        self.hw = strips.img_h * w
+        key = graphs.level_key(seq.device, self.p, b, h, w,
+                               self.fuse_occ) + strips.key()
+        prog = self.programs.enter_context(
+            graphs.running(key, seq.device, graphed=True))
+        if prog.keep is None:
+            prog.keep = strips
+        else:
+            strips = prog.keep.rejoin(strips.plan)
+        ins = prog.inputs
+        ins.seq, ins.channel_w = seq, channel_w
+        ins.norm_avg, ins.norm_std = self.norm_avg, self.norm_std
+        for name, value in carry.items():
+            setattr(prog.state, name, value)
+        self.prog, self.st = prog, prog.state
+        self.strips, self.rows = strips, strips.rows
+        self.seq, self.channel_w = ins.seq, ins.channel_w
+        self.norm_avg, self.norm_std = ins.norm_avg, ins.norm_std
+        self._bind()
+
+    def widen(self, ts, geometry):
+        seq, channel_w, wx, wy, occ = ts
+        carry = {k: getattr(self.st, k) for k in self.CARRY
+                 if hasattr(self.st, k)}
+        self._enter(self.strips.widened(geometry), seq, channel_w,
+                    dict(carry, wx=wx, wy=wy, occ=occ))
+        self.st.dpsis = self._dpsis()
+
+    def run(self, segment, fn) -> None:
+        self.prog.run(segment, fn)
+
+
+def _graphed_strip_level(wx, wy, seq, channel_w, norm_avg, norm_std,
+                         p: MultiFrameParams, strips):
+    """`compute_one_level` with strips in its graph form."""
+    with contextlib.ExitStack() as programs:
+        level = _GraphedStrips(seq, channel_w, norm_avg, norm_std, p, strips,
+                               programs)
+        level.st.wx, level.st.wy = wx, wy
+        level.drive(level.run)
+        st = level.st
+        return st.wx.clone(), st.wy.clone(), st.occ.clone()
+
+
 def first_system(p: MultiFrameParams) -> bool:
     """Whether the alternation top assembles and solves the first outer
     iteration's system (the fused-occlusion route)."""
@@ -408,15 +484,19 @@ def compute_one_level(wx, wy, seq, channel_w, norm_avg, norm_std,
     `strips` (parallel/strips.py `Strips`): the batch is this device's strip
     windows (module docstring); the result is those windows.
 
-    On CUDA without strips the level replays this thread's cached CUDA
-    graphs of its segments (variational/graphs.py), bitwise equal to the
-    eager level; on the CPU and with strips it runs eagerly. `_eager` (for
-    tests and chip_smoke.py only) runs a CUDA level eagerly."""
-    if _eager or strips is not None or seq.device.type != "cuda":
+    On CUDA the level replays this thread's cached CUDA graphs of its
+    segments (variational/graphs.py; with strips, those of each window
+    geometry), bitwise equal to the eager level; on the CPU it runs
+    eagerly. `_eager` (for tests and chip_smoke.py only) runs a CUDA level
+    eagerly."""
+    if _eager or seq.device.type != "cuda":
         level = _Level(seq, channel_w, norm_avg, norm_std, p, strips)
         level.st.wx, level.st.wy = wx, wy
         level.drive(lambda segment, fn: fn())
         return level.st.wx, level.st.wy, level.st.occ
+    if strips is not None:
+        return _graphed_strip_level(wx, wy, seq, channel_w, norm_avg,
+                                    norm_std, p, strips)
     b, _, _, h, w = seq.shape
     key = graphs.level_key(seq.device, p, b, h, w, first_system(p))
     with graphs.running(key, seq.device, graphed=True) as prog:
