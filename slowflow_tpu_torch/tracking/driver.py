@@ -26,12 +26,11 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import ParameterList
 from ..core.penalty import make_penalty
 from ..runtime import as_f32, resolve_device
-from ..utils.phases import phase
+from ..utils.phases import phase, span
 from ..variational import graphs
 from .accumulate import accumulate_consistent_batches
 from .hypothesis import (
@@ -306,39 +305,45 @@ def build_initial_hypotheses(bank, cfg: TrackingConfig, rate_flows, fields,
     for r, (r_fwd, r_bwd, r_occ) in enumerate(rate_flows):
         r_jets = r_fwd.shape[0]
         t0 = time.time()
-        acc, tracked = accumulate_consistent_batches(
-            r_fwd, r_bwd, r_occ, cfg.consistency_threshold, cfg.skip_pixel,
-            cfg.discard_inconsistent, device=device)
-        fully_t = tracked == r_jets
-        fully = fully_t.cpu().numpy()                 # [h, w] bool, tiny
+        with span("dt.accumulate"):
+            acc, tracked = accumulate_consistent_batches(
+                r_fwd, r_bwd, r_occ, cfg.consistency_threshold,
+                cfg.skip_pixel, cfg.discard_inconsistent, device=device)
+            fully_t = tracked == r_jets
+            fully = fully_t.cpu().numpy()             # [h, w] bool, tiny
         timing["warp"] += time.time() - t0
         consistent |= fully
 
         t0 = time.time()
-        flows = adapt_fps(acc.permute(1, 2, 0, 3), cfg.jets)[None]
-        bank = _evaluate_and_insert(bank, flows, fully_t[None],
-                                    float(weight_jet[r]), r, px, py, fields,
-                                    cfg)
-        _sync(device)
+        with span("dt.evaluate"):
+            flows = adapt_fps(acc.permute(1, 2, 0, 3), cfg.jets)[None]
+            bank = _evaluate_and_insert(bank, flows, fully_t[None],
+                                        float(weight_jet[r]), r, px, py,
+                                        fields, cfg)
+            _sync(device)
         timing["data"] += time.time() - t0
 
         # EPIC-interpolated hypotheses from the consistent matches; isolated
         # consistent speckles are removed first (dense_tracking.cpp:1265)
         if cfg.epic_interpolation and epic_ctx is not None:
             r_cons = fully.astype(np.int32)
-            remove_small_segments(r_cons, 0.1, 100)
+            with span("dt.remove_segments"):
+                remove_small_segments(r_cons, 0.1, 100)
             with phase("dt.epic_hypotheses"):
                 epic_flows = _epic_hypotheses(acc.cpu().numpy(), r_cons > 0,
                                               cfg, epic_ctx, device)
             if epic_flows is not None:
                 t0 = time.time()
-                eflows = adapt_fps(torch.as_tensor(epic_flows, device=device),
-                                   cfg.jets)[None]
-                bank = _evaluate_and_insert(
-                    bank, eflows,
-                    torch.ones((1, h, w), dtype=torch.bool, device=device),
-                    float(weight_jet[r]), r, px, py, fields, cfg)
-                _sync(device)
+                with span("dt.evaluate"):
+                    eflows = adapt_fps(
+                        torch.as_tensor(epic_flows, device=device),
+                        cfg.jets)[None]
+                    bank = _evaluate_and_insert(
+                        bank, eflows,
+                        torch.ones((1, h, w), dtype=torch.bool,
+                                   device=device),
+                        float(weight_jet[r]), r, px, py, fields, cfg)
+                    _sync(device)
                 timing["data"] += time.time() - t0
     return bank, consistent
 
@@ -726,6 +731,13 @@ def track_final_pairs_batched(cfg: TrackingConfig, jobs, weight_jet=None,
 
     Returns (flows list of [h, w, 2], occ_maps list of uint8 [h, w], info).
     """
+    with span("dt.call"):
+        return _track_final_pairs(cfg, jobs, weight_jet, verbose,
+                                  init_workers, device, draws, _eager)
+
+
+def _track_final_pairs(cfg, jobs, weight_jet, verbose, init_workers, device,
+                       draws, _eager):
     device = resolve_device(device)
     if weight_jet is None:
         weight_jet = np.arange(cfg.rates, dtype=np.float32)
@@ -785,14 +797,15 @@ def track_final_pairs_batched(cfg: TrackingConfig, jobs, weight_jet=None,
             prog.level = _Alternation(cfg, ins, st, prog.graphed)
         alt, run = prog.level, prog.run
         for p_it in range(cfg.alternate):
-            with record_function("dt.alternate"):
+            with span("dt.alternate"):
                 if p_it == 0:
                     run(("sort_first",), lambda: alt.sort(True))
                 else:
                     run(("sort_keep",), lambda: alt.sort(False))
 
                 t0 = time.time()
-                alt.propagate(run, draws, p_it)
+                with span("dt.propagate"):
+                    alt.propagate(run, draws, p_it)
                 run(("nms",), alt.nms)
                 _sync(device)
                 # candidate-energy evaluation = the reference's dt_sum_time
@@ -810,7 +823,8 @@ def track_final_pairs_batched(cfg: TrackingConfig, jobs, weight_jet=None,
                 timing["pairwise"] += time.time() - t0
 
                 t0 = time.time()
-                energy, lb = alt.select()
+                with span("dt.select"):
+                    energy, lb = alt.select()
                 _sync(device)
                 timing["optimization"] += time.time() - t0
             info["variables"].append(h * w)
@@ -822,10 +836,12 @@ def track_final_pairs_batched(cfg: TrackingConfig, jobs, weight_jet=None,
                       f"lower_bound={float(lb.sum()):.1f} "
                       f"hyps={int(st.bank['valid'].sum())}")
 
-        final_flow, occ_any = _readback(st.bank["flows"], st.bank["occl"],
-                                        st.selected, J, xy_incr)
-        flows_np = final_flow.cpu().numpy().astype(np.float32)
-        occs_np = occ_any.cpu().numpy()
+        with span("dt.readback"):
+            final_flow, occ_any = _readback(st.bank["flows"],
+                                            st.bank["occl"], st.selected, J,
+                                            xy_incr)
+            flows_np = final_flow.cpu().numpy().astype(np.float32)
+            occs_np = occ_any.cpu().numpy()
     return ([flows_np[i] for i in range(F)],
             [occs_np[i].astype(np.uint8) * 255 for i in range(F)],
             info)

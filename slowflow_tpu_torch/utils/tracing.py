@@ -1,15 +1,14 @@
-"""Stage timing and device tracing.
+"""Stage timing.
 
 The reference times preprocessing / epic / minimization and writes per-phase
 totals to `results.info` / `result.info` (slow_flow.cpp:729-937,
 dense_tracking.cpp:1951-1964). `StageTimer` keeps the same discipline (the
-same text as the JAX package's `slowflow_tpu.utils.tracing.StageTimer`);
-`device_trace` records a torch.profiler trace of a block.
+same text as the JAX package's `slowflow_tpu.utils.tracing.StageTimer`).
+The port's spans on the profiler's clock live in `utils.phases`.
 """
 from __future__ import annotations
 
 import contextlib
-import os
 import time
 from collections import defaultdict
 
@@ -52,24 +51,3 @@ class StageTimer:
             for key, value in self.rows:
                 fh.write(f"{key}\t{value}\n")
 
-
-@contextlib.contextmanager
-def device_trace(log_dir: str | None):
-    """Record a torch.profiler trace of the block (CPU activity, and CUDA
-    activity when torch sees a GPU) and write it into `log_dir` as a Chrome
-    trace, `trace_<pid>_<ns>.json`; a no-op when `log_dir` is falsy.
-    Yields the path the trace will be written to, or None."""
-    if not log_dir:
-        yield None
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(log_dir, exist_ok=True)
-    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield path
-    prof.export_chrome_trace(path)

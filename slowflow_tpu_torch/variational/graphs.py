@@ -71,6 +71,7 @@ from types import SimpleNamespace
 import torch
 
 from .. import kernels
+from ..utils.phases import call, span
 
 MAX_PROGRAMS = 16   # shapes kept per host thread, and shared ones in all
 
@@ -215,8 +216,8 @@ class Segments:
             self.marked = live
 
     def read(self) -> bool:
-        return bool(self.st.flag) if self.graphed \
-            else bool(self.marked.any())
+        return call("graph.flag_read", bool,
+                    self.st.flag if self.graphed else self.marked.any())
 
 
 class Eager:
@@ -314,12 +315,17 @@ class Program:
 
     def run(self, segment, fn) -> None:
         """fn() as a graph: replayed if `segment` was captured, else run
-        eagerly on the side stream and then captured."""
+        eagerly on the side stream and then captured (the span
+        `graph.capture`)."""
         entry = self.graphs.get(segment)
         if entry is not None:
             entry.replay()
             _add_stat("replays", 1)
             return
+        with span("graph.capture"):
+            self.graphs[segment] = self._capture(fn)
+
+    def _capture(self, fn) -> _Capture:
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         self._side.wait_stream(current)
@@ -341,9 +347,9 @@ class Program:
                         raise
                 entry.launches = launches
         current.wait_stream(self._side)
-        self.graphs[segment] = entry
         _add_stat("captures", 1)
         _add_stat("capture_s", time.perf_counter() - t0)
+        return entry
 
     def close(self) -> None:
         """Free the graphs and slots once the device has run them (`_close`

@@ -57,6 +57,7 @@ from ..core.warp_pallas import warp_stack_pallas
 from ..core.warp_shift import warp_stack
 from ..parallel.mesh import make_mesh, run_sharded
 from ..runtime import as_f32, device_of, on_device
+from ..utils.phases import call, span
 from . import graphs
 from .fused_data import fused_data_system
 from .fused_solve import solve_step
@@ -199,7 +200,8 @@ class _Level(graphs.Segments):
         rank's strips with `strips`)."""
         if self.strips is None:
             return super().read()
-        return self.strips.any(self.st.flag if self.graphed else self.marked)
+        return call("graph.flag_read", self.strips.any,
+                    self.st.flag if self.graphed else self.marked)
 
     # ---------------------------------------------------------- helpers
     def entry_sum(self, x):
@@ -545,16 +547,19 @@ def variational_mt_batched(wx, wy, seq, p: MultiFrameParams, channel_w=None,
     `device="cpu"` or CPU tensors. Returns (wx, wy, occlusions) [B, H, W]
     tensors on that device."""
     device = device_of(seq, device)
-    seq = as_f32(seq, device)
-    wx = as_f32(wx, device)
-    wy = as_f32(wy, device)
-    b, f, _, h, w = seq.shape
-    if f != 2 * p.ref + 1:
-        raise ValueError(f"window of {f} frames does not match S = {p.S}")
-    channel_w, norm_avg, norm_std = _default_terms(
-        b, h, w, channel_w, norm_avg, norm_std, device)
-    with on_device(device):
-        return _mt_pipeline(wx, wy, seq, channel_w, norm_avg, norm_std, p)
+    with span("sf.call"):
+        seq = as_f32(seq, device)
+        wx = as_f32(wx, device)
+        wy = as_f32(wy, device)
+        b, f, _, h, w = seq.shape
+        if f != 2 * p.ref + 1:
+            raise ValueError(f"window of {f} frames does not match "
+                             f"S = {p.S}")
+        channel_w, norm_avg, norm_std = _default_terms(
+            b, h, w, channel_w, norm_avg, norm_std, device)
+        with on_device(device):
+            return _mt_pipeline(wx, wy, seq, channel_w, norm_avg, norm_std,
+                                p)
 
 
 def _default_terms(b, h, w, channel_w, norm_avg, norm_std, device):

@@ -2,8 +2,7 @@
 inputs, on the CPU:
 
 - `utils.tracing.StageTimer`: the same `summary()` and `write_info()` text
-  under the same clock; `device_trace` writes a Chrome trace with events,
-  and both packages' are no-ops without a directory;
+  under the same clock;
 - `utils.metrics.compute_aae` / `compute_rms` within 1e-12 (both float64);
 - `core.warp.warp_image` / `warp_backward` within 1e-5 of the plane max,
   masks equal (float32 sums in another order: the JAX warp is a one-hot
@@ -16,7 +15,6 @@ inputs, on the CPU:
   with the sintel presets (the batched EPIC and two-frame solve are held to
   JAX at 1e-5 px elsewhere; 1e-3 leaves room for the matcher's ties).
 """
-import json
 from unittest import mock
 
 import jax.numpy as jnp
@@ -77,23 +75,6 @@ def test_stage_timer_text(tmp_path):
         theirs.write_info(str(tmp_path / "theirs.info"), header=header)
         assert (tmp_path / "mine.info").read_text() == \
             (tmp_path / "theirs.info").read_text()
-
-
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    for log_dir in (None, ""):
-        with tracing.device_trace(log_dir) as path:
-            assert path is None
-        with jtracing.device_trace(log_dir):
-            pass
-    assert list(tmp_path.iterdir()) == []
-    log_dir = tmp_path / "trace"
-    with tracing.device_trace(str(log_dir)) as path:
-        x = torch.arange(1000.0).reshape(10, 100)
-        (x @ x.T).sum()
-    files = list(log_dir.iterdir())
-    assert [str(f) for f in files] == [path]
-    events = json.loads(files[0].read_text())["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
 
 
 def _flows(rng, h=20, w=24):
