@@ -11,6 +11,7 @@ long-lived process.
     python3 chip_smoke.py --graphs     # phases 1 and 14 alone
     python3 chip_smoke.py --stage3     # phases 1 and 15 alone
     python3 chip_smoke.py --match      # phases 1, 2's matcher, 16 and 17
+    python3 chip_smoke.py --epic       # phases 1 and 18 alone
 
 On CUDA the jet solve's levels replay cached CUDA graphs
 (slowflow_tpu_torch/variational/graphs.py), so phases 3, 5, 11 and 12 run
@@ -193,8 +194,20 @@ Phases (any failure makes the script exit non-zero without the final line):
      (4 x 270 x 480, 10 x 10 x 30) captured with no empty_cache by the
      caller, and a first capture (B = 2) with the device's memory held in
      the allocator's cache; both bitwise the eager level.
-Prints a JSON line with one entry per kernel (K1-K6 and the matcher; K3's
-also with its other modes' times at the bench shape), then
+ 18. epic_fits: the locally-affine fit and apply kernels
+     (csrc/epic_fit.cu) at stage 3's shape: 10 jobs of 32,400 seeds on
+     every second point of a 270x480 textured scene, nn 160, their k-NN
+     fields and label maps from the port's own distance transform and
+     Dijkstra. Per job against the numpy twin (`_kernelize` ->
+     `fit_localaffine` -> `apply_localaffine`): the affine rows within 1e-5
+     relative, the flows within 1e-3 px, the apply bitwise on the kernel's
+     rows; no seed took the least-squares fallback; the pack and upload,
+     each kernel's time (CUDA events, and device time and launches under
+     torch.profiler) beside its bound, the copy back, and the twin's host
+     seconds.
+Prints a JSON line with one entry per kernel (K1-K6, the matcher and
+K8's fit and apply; K3's also with its other modes' times at the bench
+shape), then
 {"ok": true, "device": {...}} as the last line. A detailed record goes to
 chiprun_out/chip_smoke.json.
 
@@ -347,6 +360,17 @@ def check(cond: bool, what: str) -> None:
     print(("PASS " if cond else "FAIL ") + what, flush=True)
     if not cond:
         FAILURES.append(what)
+
+
+def check_epic_fits(what: str, counts: dict, timed: dict) -> int:
+    """K8 on a main path: each CUDA `epic_batched` call of the LA method
+    (one `epic.fit_la` phase a call) launches the fit and the apply once.
+    Returns the number of calls."""
+    calls = timed.get("epic.fit_la", (0.0, 0))[1]
+    check(calls >= 1 and counts["epic_fit"] == counts["epic_apply"] == calls,
+          f"{what}: K8 epic_fit / epic_apply launched {counts['epic_fit']} /"
+          f" {counts['epic_apply']} times, once each per EPIC call ({calls})")
+    return calls
 
 
 def phase(fn):
@@ -552,6 +576,104 @@ def build():
     RECORD["native_build_s"] = time.perf_counter() - t0
     print(f"host Dijkstra built and loaded in {RECORD['native_build_s']:.1f}"
           f" s ({native.library_path().relative_to(HERE)})")
+
+
+# --------------------------------------------------------------- phase 18
+def epic_fits():
+    import torch
+
+    from slowflow_tpu_torch import kernels
+    from slowflow_tpu_torch.epic import interp
+    from slowflow_tpu_torch.epic.distance import nnfield_and_labels
+    from slowflow_tpu_torch.epic.edges import detect_edges
+
+    dev = torch.device("cuda")
+    b, h, w, nn = 10, 270, 480, 160
+    rec = RECORD.setdefault("epic_fits", {})
+    scene = _bench_scene(1, h, w, dev)[0, 0].float()
+    edges = (detect_edges(scene) + 0.001).cpu().numpy()
+    ys, xs = np.mgrid[1:h:2, 1:w:2]
+    seeds = np.stack([xs.ravel(), ys.ravel()], 1).astype(np.int32)
+    rng = np.random.default_rng(18)
+    vects = [np.stack([1.5 + 0.004 * seeds[:, 0] + 0.3 * j,
+                       -0.8 + 0.006 * seeds[:, 1]], 1).astype(np.float32)
+             + rng.normal(0, 0.2, seeds.shape).astype(np.float32)
+             for j in range(b)]
+    t0 = time.perf_counter()
+    res, labels = nnfield_and_labels([seeds] * b, [edges] * b, [nn] * b,
+                                     256, dev)
+    torch.cuda.synchronize()
+    rec["nnfield_s"] = time.perf_counter() - t0
+    labels = labels.contiguous()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t = interp.pack_jobs(*([r[i] for r in res] for i in range(4)),
+                         [seeds] * b, vects, dev)
+    torch.cuda.synchronize()
+    rec["pack_upload_s"] = time.perf_counter() - t0
+    upload_bytes = sum(x.numel() * x.element_size() for x in t)
+    S, K = t[2].shape
+
+    def fit():
+        return interp.fit_localaffine_cuda(*t, 1.1)
+
+    kernels.reset_launch_counts()
+    fallback = interp.FIT_FALLBACK_SEEDS
+    affine = fit()
+    flows = interp.apply_localaffine_cuda(affine, labels, t[-1][:-1])
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    check(counts["epic_fit"] == counts["epic_apply"] == 1,
+          f"epic_fits: one launch of each kernel a call ({counts})")
+    check(interp.FIT_FALLBACK_SEEDS == fallback,
+          "epic_fits: no seed took the least-squares fallback")
+    t0 = time.perf_counter()
+    flows_host = flows.cpu().numpy()
+    rec["copy_back_s"] = time.perf_counter() - t0
+    affine_host = affine.cpu().numpy()
+
+    t0 = time.perf_counter()
+    errs = []
+    for j, (nnf, dis, own, d0, lab, _) in enumerate(res):
+        want = interp.fit_localaffine(
+            nnf[own], interp._kernelize(d0[:, None] + dis[own], 1.1),
+            seeds.astype(np.float32), vects[j])
+        flow = interp.apply_localaffine(want, lab, h, w)
+        rows = affine_host[j * len(seeds):(j + 1) * len(seeds)]
+        errs.append((float(np.abs(rows - want).max() / np.abs(want).max()),
+                     float(np.abs(flows_host[j] - flow).max()),
+                     bool((flows_host[j] == interp.apply_localaffine(
+                         rows, lab, h, w)).all())))
+    rec["twin_s"] = time.perf_counter() - t0
+    rec["errors"] = errs
+    check(max(e[0] for e in errs) <= 1e-5 and max(e[1] for e in errs)
+          <= 1e-3 and all(e[2] for e in errs),
+          f"epic_fits: against the twin, affine max rel "
+          f"{max(e[0] for e in errs):.3g} <= 1e-5, flow max "
+          f"{max(e[1] for e in errs):.3g} px <= 1e-3, apply bitwise on the "
+          f"kernel's rows {all(e[2] for e in errs)}")
+
+    fit_bytes = S * K * 8 + S * (8 + 8 + 4 + 4 + 4) + 4 * (b + 1) + S * 24
+    apply_bytes = b * h * w * (4 + 8) + S * 24 + b * 4
+    for name, fn, nbytes in (
+            ("fit", fit, fit_bytes),
+            ("apply", lambda: interp.apply_localaffine_cuda(
+                affine, labels, t[-1][:-1]), apply_bytes)):
+        r = dict(ms=cuda_ms(fn), **bound(nbytes, 0.0),
+                 **_one_call_profile(fn))
+        rec[name] = r
+        print(f"epic_{name}: {r['ms']:.4f} ms [{r['device_ms']:.4f}], "
+              f"{r['launches_per_call']} launch(es), bound {r['bound_ms']:.4f}"
+              f" ms ({nbytes / 1e6:.1f} MB)")
+    rec.update(S=S, K=K, upload_bytes=upload_bytes,
+               ptxas=_ptxas_report("epic_fit.cu"))
+    print(f"epic_fits: S {S}, K {K}; nnfield {rec['nnfield_s']:.3f} s, pack "
+          f"and upload {rec['pack_upload_s']:.4f} s "
+          f"({upload_bytes / 1e6:.1f} MB), copy back {rec['copy_back_s']:.4f}"
+          f" s, twin {rec['twin_s']:.2f} s")
+    for line in rec["ptxas"]:
+        print("  " + line)
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1453,6 +1575,12 @@ def cli_stage2_epic():
             rec["deep_matching_1" if dm else "deep_matching_0"] = r
             what = f"CLI stage 2, deep_matching {dm}"
             check(rc == 0, f"{what}: exit code {rc} ({wall:.1f} s)")
+            if dm:
+                r["epic_calls"] = check_epic_fits(what, counts, totals)
+            else:
+                check(counts["epic_fit"] == counts["epic_apply"] == 0,
+                      f"{what}: no K8 launch ({counts['epic_fit']} / "
+                      f"{counts['epic_apply']})")
             check(counts["solve_step"] > 0 and counts["warp_assemble"] > 0,
                   f"{what}: launches {counts} (K1 solve_step and K2 "
                   "warp_assemble)")
@@ -1528,6 +1656,7 @@ def stage1():
     check(rc == 0, f"stage 1: exit code {rc} ({wall:.1f} s)")
     check(counts["sor"] > 0 and counts["grid_match"] > 0,
           f"stage 1: launches {counts} (K5 sor, the matcher's grid_match)")
+    rec["epic_calls"] = check_epic_fits("stage 1", counts, totals)
     print(f"  two-frame solve: {tf_graphs['calls']} calls, "
           f"{tf_graphs['captures']} graph captures, {tf_graphs['replays']} "
           "replays")
@@ -1538,7 +1667,7 @@ def stage1():
           f"stage 1: quantil.dat {values} vs |(u, v)| = {target:.3f}")
     for name in ("af.read_frames", "af.preprocess", "af.matches", "af.epic",
                  "af.twoframe", "epic.dt_device", "epic.seed_graph",
-                 "epic.dijkstra"):
+                 "epic.dijkstra", "epic.fit_la", "epic.apply_la"):
         sec, n = totals.get(name, (0.0, 0))
         print(f"  {name:<20} {sec:8.3f} s  x{n}")
 
@@ -1610,13 +1739,15 @@ def epicflow_cli():
     from slowflow_tpu_torch import kernels
     from slowflow_tpu_torch.cli import epicflow
     from slowflow_tpu_torch.io import read_flo
+    from slowflow_tpu_torch.utils import phases
 
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         tmp = Path(tmp)
         _write_scene_pngs(tmp / "seq", 2)
         out = tmp / "pair.flo"
         kernels.reset_launch_counts()
-        with twoframe_graph_counts() as tf_graphs:
+        with twoframe_graph_counts() as tf_graphs, \
+                phases.recording() as timed_phases:
             t0 = time.perf_counter()
             rc = epicflow.main([str(tmp / "seq" / "frame_000.png"),
                                 str(tmp / "seq" / "frame_001.png"), "auto",
@@ -1630,9 +1761,13 @@ def epicflow_cli():
         return
     med = [float(np.median(flow[8:-8, 8:-8, c])) for c in (0, 1)]
     RECORD["epicflow_cli"] = dict(rc=rc, wall_s=wall, median_flow=med,
-                                  launches=counts, twoframe_graphs=tf_graphs)
+                                  launches=counts, twoframe_graphs=tf_graphs,
+                                  phases=dict(timed_phases))
     print(f"epicflow CLI: {wall:.3f} s, launches {counts}; two-frame solve "
-          f"{tf_graphs}")
+          f"{tf_graphs}; " + ", ".join(
+              f"{k} {sec:.3f} s x{n}" for k, (sec, n)
+              in sorted(timed_phases.items()) if k.startswith("epic.")))
+    check_epic_fits("epicflow CLI", counts, timed_phases)
     check(counts["grid_match"] == 2 and counts["sor"] > 0
           and tf_graphs["calls"] == 1 and tf_graphs["captures"]
           + tf_graphs["replays"] == 1, "epicflow CLI: the matcher kernel "
@@ -1708,6 +1843,7 @@ def stage3_final_pair():
 
     import torch
 
+    from slowflow_tpu_torch import kernels
     from slowflow_tpu_torch.bench_scene import (dt_flow_err_px, stage3_config,
                                                 stage3_final_pair as scene)
     from slowflow_tpu_torch.tracking.driver import track_final_pairs_batched
@@ -1720,16 +1856,19 @@ def stage3_final_pair():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with phases.recording() as timed_phases:
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         flows, occs, info = track_final_pairs_batched(cfg, [job], device=dev)
         wall = time.perf_counter() - t0
         totals = dict(timed_phases)
+        counts = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     flow = flows[0]
     err = dt_flow_err_px(flow, gt)
     rec = dict(wall_s=wall, timing=info["timing"], peak_bytes=peak,
                dt_flow_err_px=err, flow_shape=list(flow.shape),
-               occluded_share=float((occs[0] > 0).mean()), phases=totals)
+               occluded_share=float((occs[0] > 0).mean()), phases=totals,
+               kernel_launches=counts)
     rec.update(_stage3_profile(cfg, job))
     rec["idle_share_unprofiled"] = 1 - rec["busy_ms"] / (wall * 1e3)
     RECORD["stage3_final_pair"] = rec
@@ -1752,6 +1891,7 @@ def stage3_final_pair():
           f"stage 3 flow {list(flow.shape)} finite")
     check(err <= DT_ERR_TOL, f"stage 3 dt_flow_err_px {err:.4f} <= "
           f"{DT_ERR_TOL}")
+    check_epic_fits("stage 3 final pair", counts, totals)
     check(rec["launches"] > 0 and len(rec["alternations"]) == cfg.alternate,
           f"stage 3 profile: {rec['launches']} launches, "
           f"{len(rec['alternations'])} alternations")
@@ -1809,8 +1949,10 @@ def cli_stage3():
 
     import torch
 
+    from slowflow_tpu_torch import kernels
     from slowflow_tpu_torch.cli import dense_tracking, slow_flow
     from slowflow_tpu_torch.io import read_flo
+    from slowflow_tpu_torch.utils import phases
 
     jets, steps, finals = 2, 2, 2
     want = [jets * steps * c / 2 for c in BENCH_UV]   # on the 1/2 grid
@@ -1843,11 +1985,17 @@ def cli_stage3():
         """))
         argv = [str(cfg3), "-threads", "2", "-batch_finals", "2"]
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc = dense_tracking.main(argv)
-        torch.cuda.synchronize()
-        rec.update(rc=rc, wall_s=time.perf_counter() - t0)
+        with phases.recording() as timed_phases:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = dense_tracking.main(argv)
+            torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)
+        rec.update(rc=rc, wall_s=time.perf_counter() - t0, launches=counts,
+                   phases=dict(timed_phases))
         check(rc == 0, f"CLI stage 3: exit code {rc} ({rec['wall_s']:.1f} s)")
+        rec["epic_calls"] = check_epic_fits("CLI stage 3", counts,
+                                            timed_phases)
         out = tmp / "dt_out"
         info = (out / "result.info").read_text() \
             if (out / "result.info").exists() else ""
@@ -1894,14 +2042,17 @@ def pipeline():
     of 5 jets), 8 finals, stage 3 with -threads 2, the production stage-2
     and stage-3 cfgs. K1, K2 (stage 2) and K5 (stage 1) must launch."""
     from slowflow_tpu_torch import bench_pipeline, kernels
+    from slowflow_tpu_torch.utils import phases
 
-    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp, \
+            phases.recording() as timed_phases:
         kernels.reset_launch_counts()
         out = bench_pipeline.run_pipeline(
             Path(tmp) / "run", PIPELINE_JETS, PIPELINE_FINALS, threads=2,
             device="cuda")
         counts = dict(kernels.LAUNCHES)
-    RECORD["pipeline"] = {**out, "launches": counts}
+    RECORD["pipeline"] = {**out, "launches": counts,
+                          "phases": dict(timed_phases)}
     bench_pipeline.print_report(out)
     print(f"pipeline {out['pipeline_s']:.2f} s for {out['jets']} jets "
           f"({out['pipeline_jets_per_sec']:.4f} jets/s), "
@@ -1909,6 +2060,8 @@ def pipeline():
     for name in PIPELINE_KERNELS:
         check(counts[name] > 0, f"pipeline: {name} launched {counts[name]} "
               "times")
+    RECORD["pipeline"]["epic_calls"] = check_epic_fits("pipeline", counts,
+                                                       timed_phases)
     target = float(np.hypot(*BENCH_UV))
     check(abs(out["quantil"] - target) <= QUANTIL_TOL * target,
           f"pipeline quantil {out['quantil']:.4f} within "
@@ -3226,6 +3379,28 @@ def graph_memory():
     graphs.clear_shared()
 
 
+def k8_entries(csrc: str) -> list:
+    """K8's entries of the `kernels` line: the fit and the apply with their
+    launches in phase 8's stage-3 final pair, their times and errors at
+    stage 3's shape (phase 18) and the EPIC calls of the other main paths
+    (each checked there to launch each kernel once)."""
+    fits = RECORD.get("epic_fits", {})
+    errs = fits.get("errors", [])
+    return [{
+        "name": name, "route": "cuda", "source": csrc + "epic_fit.cu",
+        "replaces": f"slowflow_tpu/epic/interp.py:{twin}",
+        "tpu_kernel": "none: the JAX package's host numpy",
+        "launches": RECORD.get("stage3_final_pair", {}).get(
+            "kernel_launches", {}).get(name, 0),
+        "max_rel_err": max((e[0] for e in errs), default=None),
+        "max_flow_err_px": max((e[1] for e in errs), default=None),
+        **{k: fits.get(name.split("_")[1], {}).get(k) for k in (
+            "ms", "bound_ms", "bound_by", "launches_per_call", "device_ms")},
+        "epic_calls": {k: RECORD.get(k, {}).get("epic_calls") for k in (
+            "stage1", "cli_stage3", "pipeline")}}
+        for name, twin in (("epic_fit", 56), ("epic_apply", 152))]
+
+
 def main() -> int:
     import torch
 
@@ -3257,6 +3432,15 @@ def main() -> int:
             json.dump(RECORD, fh, indent=1)
         print("match phases " + ("FAILED:\n  " + "\n  ".join(FAILURES)
                                  if FAILURES else "ok"))
+        return 1 if FAILURES else 0
+    if sys.argv[1:2] == ["--epic"]:
+        OUT_DIR.mkdir(exist_ok=True)
+        for fn in (build, epic_fits):
+            phase(fn)
+        with open(OUT_DIR / "chip_smoke_epic.json", "w") as fh:
+            json.dump(RECORD, fh, indent=1)
+        print("epic phase " + ("FAILED:\n  " + "\n  ".join(FAILURES)
+                               if FAILURES else "ok"))
         return 1 if FAILURES else 0
     if sys.argv[1:2] == ["--sp"]:
         OUT_DIR.mkdir(exist_ok=True)
@@ -3296,7 +3480,7 @@ def main() -> int:
                stage3_final_pair,
                stage3_batched, cli_stage3, pipeline, sharded_solve, sp_solve,
                graphs_dispatch, stage3_dispatch, twoframe_dispatch,
-               graph_memory):
+               graph_memory, epic_fits):
         phase(fn)
 
     kv = RECORD.get("kernels_vs_twins", {})
@@ -3360,6 +3544,7 @@ def main() -> int:
             "labels_differ", "labels_differ_not_ties", "registers",
             "blocks_per_sm", "sentinel_blocks", "general_blocks")}
             for r in match_rows}})
+    line["kernels"] += k8_entries(csrc)
     # K5 on stage 1's path: launches of the stage-1 run, time at B = 40
     k5_b40 = [r for r in kv.get("sor", []) if r["shape"] == [40, 270, 480]]
     line["kernels"][4]["stage1_launches"] = RECORD.get("stage1", {}).get(

@@ -39,7 +39,7 @@ def sor_coupled_rb_pallas(du, dv, a11, a12, a22, b1, b2, wh, wv, *,
     named = dict(du=du, dv=dv, a11=a11, a12=a12, a22=a22, b1=b1, b2=b2,
                  wh=wh, wv=wv)
     for name, t in named.items():
-        kernels.require_f32_cuda(name, t, shape, dev)
+        kernels.require_cuda(name, t, shape, dev)
     b = du.numel() // (h * w)
     kernels.require_rows(rows, b, h, dev)
     ndu = torch.empty_like(du)

@@ -55,9 +55,9 @@ def _warp_stack_cuda(seq, wx, wy, factors, identity: int, counter: str,
     if len(factors) != f or not 1 <= f <= MAXF:
         raise ValueError(f"{len(factors)} factors for {f} frames "
                          f"(at most {MAXF})")
-    kernels.require_f32_cuda("seq", seq, (b, f, c, h, w), dev)
-    kernels.require_f32_cuda("wx", wx, (b, h, w), dev)
-    kernels.require_f32_cuda("wy", wy, (b, h, w), dev)
+    kernels.require_cuda("seq", seq, (b, f, c, h, w), dev)
+    kernels.require_cuda("wx", wx, (b, h, w), dev)
+    kernels.require_cuda("wy", wy, (b, h, w), dev)
     kernels.require_rows(rows, b, h, dev)
     out = torch.empty_like(seq)
     masks = torch.empty((b, f, h, w), dtype=torch.float32, device=dev) \

@@ -188,6 +188,22 @@ def dist_trf_nnfield_batched(seeds_list, cost_list, nn_list,
     seeds_list: [ns_b, 2] int (x, y); cost_list: [H, W] float32 arrays;
     nn_list: neighbours per seed. `device`: None = CUDA.
     Returns a list of (best [ns, nn], dist [ns, nn], labels, dmap)."""
+    out, _ = nnfield_and_labels(seeds_list, cost_list, nn_list, max_iter,
+                                device)
+    return [(nnf[rows], d0[:, None] + dis[rows], lab, dmap)
+            for nnf, dis, rows, d0, lab, dmap in out]
+
+
+def nnfield_and_labels(seeds_list, cost_list, nn_list, max_iter: int = 256,
+                       device=None):
+    """`dist_trf_nnfield_batched` before its per-seed gather, and the label
+    maps [B, H, W] int32 as the transform left them on `device`.
+
+    Returns (a list of (nnf [ns, nn], dis [ns, nn], rows [ns], d0 [ns],
+    labels, dmap) per problem, the label maps): the k-NN of every node of
+    the seed graph (node i is seed i), and for each seed the node at its
+    pixel and the distance there (a later seed wins a shared pixel), so
+    that seed s's neighbours are nnf[rows[s]] at d0[s] + dis[rows[s]]."""
     device = device_of(None, device)
     B = len(seeds_list)
     h, w = np.asarray(cost_list[0]).shape
@@ -210,21 +226,18 @@ def dist_trf_nnfield_batched(seeds_list, cost_list, nn_list,
             torch.as_tensor(sd, device=device),
             torch.as_tensor(sl, device=device), max_iter)
         dmaps = dmaps.cpu().numpy()
-        labels = labels.cpu().numpy()
+        labels_np = labels.cpu().numpy()
     out = []
     for b in range(B):
-        dmap, lab = dmaps[b], labels[b]
+        dmap, lab = dmaps[b], labels_np[b]
         ns = len(seeds_list[b])
         with phase("epic.seed_graph"):
             indptr, indices, data = seed_graph(lab, dmap, ns)
         with phase("epic.dijkstra"):
             nnf, dis = knn_graph_all(indptr, indices, data, nn_list[b])
-        d_at_seed = dmap[sys[b], sxs[b]]
-        lab_at_seed = lab[sys[b], sxs[b]]
-        best = nnf[lab_at_seed]
-        dist = d_at_seed[:, None] + dis[lab_at_seed]
-        out.append((best, dist, lab, dmap))
-    return out
+        out.append((nnf, dis, lab[sys[b], sxs[b]], dmap[sys[b], sxs[b]],
+                    lab, dmap))
+    return out, labels
 
 
 def dist_trf_nnfield(seeds: np.ndarray, cost: np.ndarray, nn: int,

@@ -11,24 +11,38 @@ Pipeline per problem:
   6. fit Nadaraya-Watson or locally-weighted affine models per seed
   7. apply them to all pixels through the closest-seed label map
 
-The fits and the per-pixel apply stay float64 / float32 numpy on the host,
-as in the JAX package: they are small ([seeds, nn] moments and one gather
-per pixel), the label map is on the host already for the seed graph, and a
-device copy would add two transfers per problem. The distance transforms
-run on the device, one batched call for the prefilter and one for the
-interpolation; the saliency map too when the caller gives none.
+The distance transforms run on the device, one batched call for the
+prefilter and one for the interpolation; the saliency map too when the
+caller gives none. On CUDA the locally-affine method's fits and apply are
+the hand-written kernels of csrc/epic_fit.cu over all of a call's jobs at
+once: the jobs' k-NN fields are packed into one table on the card
+(`pack_jobs`, each job's arrays copied once), fitted in one launch
+(`fit_localaffine_cuda`, the kernelized weights fused in) and applied in
+one launch through the label maps the transform left on the card
+(`apply_localaffine_cuda`), with one copy of the flows back. Everywhere
+else (the CPU, the NW method, the prefilter's NW fit) the fits are host
+numpy, as in the JAX package: `_kernelize`, `fit_localaffine` and
+`apply_localaffine` are the kernels' plain twins.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..core.image import saliency as saliency_fn
-from ..runtime import device_of
+from ..runtime import device_of, on_device
 from ..utils.phases import phase
-from .distance import dist_trf_nnfield_batched
+from .distance import dist_trf_nnfield_batched, nnfield_and_labels
+
+# seeds whose locally-affine system met an exactly zero pivot in the fit
+# kernel and took the twin's least-squares fallback there
+# (`fit_localaffine_cuda`); read by tests
+FIT_FALLBACK_SEEDS = 0
+_fallback_lock = threading.Lock()
 
 
 @dataclass
@@ -168,6 +182,129 @@ def _kernelize(dis, coef_kernel):
     return np.where(np.isfinite(dis), k + 1e-8, 0.0)
 
 
+def pack_jobs(nnfs, diss, rows, d0s, seeds, vects, device):
+    """The k-NN fields of a call's jobs as one table on `device` for the fit
+    kernel, as `nnfield_and_labels` gives them: seed s of a job has the
+    neighbours nnf[rows[s]] at distances d0[s] + dis[rows[s]], which the
+    kernel gathers. The tables' rows go job after job, each job's columns
+    padded to the widest with -1 / +inf (weight 0, as unfilled neighbours
+    weigh); each job's arrays are copied once, straight into their rows.
+
+    nnfs [ns_b, k_b] int32 job-local indices (-1 unfilled), diss [ns_b,
+    k_b] float32, rows [ns_b] int in [0, ns_b), d0s
+    [ns_b] float32, seeds / vects [ns_b, 2]. Returns tensors (seeds [S, 2],
+    vects [S, 2] float32, nnf [S, K] int32, dis [S, K] float32, src [S]
+    int32, d0 [S] float32, job [S] int32: each seed's job, starts [B + 1]
+    int32: each job's first row, then S): seed s's neighbours are row
+    starts[job[s]] + src[s], and its neighbour j is row starts[job[s]] +
+    j."""
+    ns = [len(s) for s in seeds]
+    starts = np.concatenate([[0], np.cumsum(ns)]).astype(np.int64)
+    total = int(starts[-1])
+    if total >= 2 ** 31:
+        raise ValueError(f"pack_jobs: {total} seeds exceed int32 indices")
+    k = max([n.shape[1] for n in nnfs], default=0)
+    nnf = torch.empty((total, k), dtype=torch.int32, device=device)
+    dis = torch.empty((total, k), dtype=torch.float32, device=device)
+    src = []
+    for b, (n_b, d_b, r_b) in enumerate(zip(nnfs, diss, rows)):
+        if n_b.shape[0] != ns[b] or d_b.shape != n_b.shape \
+                or len(r_b) != ns[b]:
+            raise ValueError(f"pack_jobs: job {b}: nnf {n_b.shape} / dis "
+                             f"{d_b.shape} / rows {len(r_b)} for {ns[b]} "
+                             "seeds")
+        r_b = np.asarray(r_b, np.int64)
+        if len(r_b) and (r_b.min() < 0 or r_b.max() >= ns[b]):
+            raise ValueError(f"pack_jobs: job {b}: a row outside "
+                             f"[0, {ns[b]})")
+        src.append(r_b)
+        part, kb = slice(starts[b], starts[b + 1]), n_b.shape[1]
+        nnf[part, :kb] = torch.as_tensor(np.asarray(n_b, np.int32))
+        dis[part, :kb] = torch.as_tensor(np.asarray(d_b, np.float32))
+        nnf[part, kb:] = -1
+        dis[part, kb:] = float("inf")
+    seeds, vects = (torch.as_tensor(
+        np.concatenate(a).astype(np.float32).reshape(total, 2), device=device)
+        for a in (seeds, vects))
+    src, d0 = (torch.as_tensor(np.concatenate(a).astype(dt), device=device)
+               for a, dt in ((src, np.int32), (d0s, np.float32)))
+    job = torch.repeat_interleave(
+        torch.arange(len(ns), dtype=torch.int32, device=device),
+        torch.as_tensor(ns, device=device), output_size=total)
+    return (seeds, vects, nnf, dis, src, d0, job,
+            torch.as_tensor(starts.astype(np.int32), device=device))
+
+
+def fit_localaffine_cuda(seeds, vects, nnf, dis, src, d0, job, starts,
+                         coef_kernel):
+    """`_kernelize` and `fit_localaffine` of packed jobs (`pack_jobs`'
+    tensors, on the calling thread's current CUDA device) through the kernel
+    of csrc/epic_fit.cu, on the current stream. The seeds whose system
+    meets an exactly zero pivot take the twin's least squares in the
+    kernel, counted in FIT_FALLBACK_SEEDS; a neighbour index beyond its job
+    raises. Returns affine [S, 6] float32 on the device."""
+    global FIT_FALLBACK_SEEDS
+    dev = seeds.device
+    if dev.type != "cuda":
+        raise ValueError(f"fit_localaffine_cuda: tensors on {dev}, "
+                         "expected CUDA")
+    S, K = nnf.shape
+    for name, t, shape, dtype in (
+            ("seeds", seeds, (S, 2), torch.float32),
+            ("vects", vects, (S, 2), torch.float32),
+            ("nnf", nnf, (S, K), torch.int32),
+            ("dis", dis, (S, K), torch.float32),
+            ("src", src, (S,), torch.int32),
+            ("d0", d0, (S,), torch.float32),
+            ("job", job, (S,), torch.int32),
+            ("starts", starts, (len(starts),), torch.int32)):
+        kernels.require_cuda(name, t, shape, dev, dtype)
+    affine = torch.empty((S, 6), dtype=torch.float32, device=dev)
+    counts = torch.empty((2,), dtype=torch.int32, device=dev)
+    err = kernels.load().sf_epic_fit(
+        *(kernels.ptr(t) for t in (seeds, vects, nnf, dis, src, d0, job,
+                                   starts, affine, counts)),
+        S, K, float(coef_kernel), kernels.stream_ptr(dev))
+    kernels.check(err, "epic_fit")
+    kernels.count_launch("epic_fit")
+    n, n_bad = counts.tolist()
+    if n_bad:
+        raise ValueError(f"fit_localaffine_cuda: {n_bad} seeds hold a "
+                         "neighbour index beyond their job")
+    if n:
+        with _fallback_lock:
+            FIT_FALLBACK_SEEDS += n
+    return affine
+
+
+def apply_localaffine_cuda(affine, labels, starts):
+    """`apply_localaffine` of B images through the kernel of
+    csrc/epic_fit.cu, on the current stream: labels [B, H, W] int32
+    job-local seed indices (< 0 none), starts [B] int32 each image's first
+    row of affine [S, 6] float32, all contiguous on the calling thread's
+    current CUDA device. Returns flows [B, H, W, 2] float32 there."""
+    dev = affine.device
+    if dev.type != "cuda":
+        raise ValueError(f"apply_localaffine_cuda: tensors on {dev}, "
+                         "expected CUDA")
+    if labels.dim() != 3:
+        raise ValueError(f"labels: expected [B, H, W], got "
+                         f"{list(labels.shape)}")
+    b, h, w = labels.shape
+    for name, t, shape, dtype in (
+            ("affine", affine, (len(affine), 6), torch.float32),
+            ("labels", labels, (b, h, w), torch.int32),
+            ("starts", starts, (b,), torch.int32)):
+        kernels.require_cuda(name, t, shape, dev, dtype)
+    out = torch.empty((b, h, w, 2), dtype=torch.float32, device=dev)
+    err = kernels.load().sf_epic_apply(
+        *(kernels.ptr(t) for t in (labels, starts, affine, out)), b, h, w,
+        kernels.stream_ptr(dev))
+    kernels.check(err, "epic_apply")
+    kernels.count_launch("epic_apply")
+    return out
+
+
 def epic(imlab, matches, edges, params: EpicParams = EpicParams(),
          max_iter_dt: int = 256, saliency_map=None, device=None):
     """Sparse-to-dense interpolation of one problem.
@@ -187,9 +324,10 @@ def epic_batched(jobs, params: EpicParams = EpicParams(),
 
     jobs: list of (imlab, matches, edges, saliency_map-or-None). The two
     geodesic distance transforms (prefilter and interpolation) are one
-    batched device call each over the jobs that need them; the fits run
-    per job on the host. `device`: None = CUDA. Returns a list of flow
-    [H, W, 2] float32 arrays."""
+    batched device call each over the jobs that need them; on CUDA the LA
+    fits and apply are one launch each over all the jobs, elsewhere the
+    fits run per job on the host. `device`: None = CUDA. Returns a list of
+    flow [H, W, 2] float32 arrays."""
     device = device_of(None, device)
     B = len(jobs)
     state = []
@@ -251,12 +389,34 @@ def epic_batched(jobs, params: EpicParams = EpicParams(),
             h, w = state[b]["hw"]
             flows[b] = np.zeros((h, w, 2), np.float32)
     if idx:
+        la_cuda = params.method.upper() == "LA" and device.type == "cuda"
         with phase("epic.main_dt"):
-            res = dist_trf_nnfield_batched(
-                [state[b]["matches"][:, :2].astype(np.int32) for b in idx],
-                [state[b]["edges"] for b in idx],
-                [min(params.nn, len(state[b]["matches"])) for b in idx],
-                max_iter_dt, device)
+            args = ([state[b]["matches"][:, :2].astype(np.int32)
+                     for b in idx],
+                    [state[b]["edges"] for b in idx],
+                    [min(params.nn, len(state[b]["matches"])) for b in idx],
+                    max_iter_dt, device)
+            if la_cuda:
+                res, labels_t = nnfield_and_labels(*args)
+            else:
+                res = dist_trf_nnfield_batched(*args)
+        if la_cuda:
+            ms = [state[b]["matches"] for b in idx]
+            with on_device(device):
+                with phase("epic.fit_la"):
+                    packed = pack_jobs(
+                        *([r[i] for r in res] for i in range(4)),
+                        [m[:, :2].astype(np.int32) for m in ms],
+                        [m[:, 2:4] - m[:, :2] for m in ms], device)
+                    affine = fit_localaffine_cuda(*packed,
+                                                  params.coef_kernel)
+                with phase("epic.apply_la"):
+                    starts = packed[-1][:-1]        # each job's first row
+                    out = apply_localaffine_cuda(affine, labels_t,
+                                                 starts).cpu().numpy()
+            for b, flow in zip(idx, out):
+                flows[b] = flow
+            return flows
         for b, (nnf, dis, labels, _) in zip(idx, res):
             m = state[b]["matches"]
             h, w = state[b]["hw"]

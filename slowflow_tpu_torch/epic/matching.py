@@ -94,8 +94,8 @@ def grid_match(g1, g2, ys, xs, radius: int, patch_r: int):
     if g1.dim() != 3:
         raise ValueError(f"g1: expected [B, H, W], got {tuple(g1.shape)}")
     b, h, w = g1.shape
-    kernels.require_f32_cuda("g1", g1, (b, h, w), dev)
-    kernels.require_f32_cuda("g2", g2, (b, h, w), dev)
+    kernels.require_cuda("g1", g1, (b, h, w), dev)
+    kernels.require_cuda("g2", g2, (b, h, w), dev)
     p = ys.shape[-1] if ys.dim() == 2 else -1
     for name, t in (("ys", ys), ("xs", xs)):
         if t.device != dev or t.dtype != torch.int64 \

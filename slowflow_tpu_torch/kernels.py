@@ -71,18 +71,24 @@ _SIGNATURES = {
     "sf_grid_match_occupancy": [_L, _I, _P],
     # out (2 int64: blocks on the sentinel path, on the general path)
     "sf_grid_match_paths": [_P],
+    # seeds, vects, nnf, dis, src, d0, job, starts, affine, counts, S, K,
+    # coef, stream
+    "sf_epic_fit": [_P] * 10 + [_I] * 2 + [_F, _P],
+    # labels, start, affine, out, B, H, W, stream
+    "sf_epic_apply": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 # launches of each kernel wrapper; read and reset by callers that must show
 # a path went through the kernels. warp_stack and warp_stack_pallas are the
-# K4 and K6 entries of one kernel; grid_match is the EPIC grid matcher's.
+# K4 and K6 entries of one kernel; grid_match is the EPIC grid matcher's,
+# epic_fit / epic_apply the locally-affine interpolation's.
 # Shards and the EPIC prefetch launch from several host threads, so the
 # counts change under a lock. While a thread captures a CUDA graph
 # its wrappers count into the graph's own record instead (`recording`), and
 # every replay of that graph adds the record (`add_launches`).
 LAUNCHES = {"warp_assemble": 0, "solve_step": 0, "fused_data": 0,
             "warp_stack": 0, "warp_stack_pallas": 0, "sor": 0,
-            "grid_match": 0}
+            "grid_match": 0, "epic_fit": 0, "epic_apply": 0}
 _count_lock = threading.Lock()
 _recorder = threading.local()
 
@@ -238,15 +244,16 @@ def rows_ptr(rows):
     return None if rows is None else ptr(rows.table)
 
 
-def require_f32_cuda(name: str, t: torch.Tensor, shape, device) -> None:
-    """Raise unless `t` is a contiguous float32 CUDA tensor of `shape` on
-    `device`."""
+def require_cuda(name: str, t: torch.Tensor, shape, device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless `t` is a contiguous `dtype` (float32 by default) CUDA
+    tensor of `shape` on `device`."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

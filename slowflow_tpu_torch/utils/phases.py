@@ -204,15 +204,15 @@ def add(name: str, seconds: float):
 def recording():
     """Time every phase of the block, whether SF_PROF is on or not, into
     the dict it yields ({name: (seconds, count)}); `report()` and `reset()`
-    leave that dict alone."""
+    leave that dict alone. Blocks may nest: each ends its own dict."""
     rec: dict = {}
     with _lock:
         _recorders.append(rec)
     try:
         yield rec
     finally:
-        with _lock:
-            _recorders.remove(rec)
+        with _lock:    # by identity: a nested block's dict may equal it
+            _recorders[:] = [r for r in _recorders if r is not rec]
 
 
 def totals() -> dict:

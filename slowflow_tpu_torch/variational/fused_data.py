@@ -127,13 +127,13 @@ def _fused_data_cuda(warped, mask, du, dv, cw, p, mode, zero_duv):
     if f != n + 1:
         raise ValueError(f"warped: {f} frames do not match S = {p.S}")
     plane = (b, h, w)
-    kernels.require_f32_cuda("warped", warped, (b, f, 3, h, w), dev)
-    kernels.require_f32_cuda("mask", mask, (b, n, h, w), dev)
-    kernels.require_f32_cuda("cw", cw, (b, 3, h, w), dev)
+    kernels.require_cuda("warped", warped, (b, f, 3, h, w), dev)
+    kernels.require_cuda("mask", mask, (b, n, h, w), dev)
+    kernels.require_cuda("cw", cw, (b, 3, h, w), dev)
     uses_duv = mode == "assembly" and not zero_duv
     if uses_duv:
-        kernels.require_f32_cuda("du", du, plane, dev)
-        kernels.require_f32_cuda("dv", dv, plane, dev)
+        kernels.require_cuda("du", du, plane, dev)
+        kernels.require_cuda("dv", dv, plane, dev)
     mode_id, n_out = MODES[mode]
     params = kernel_params(p)
     out = torch.empty((n_out, b, h, w), dtype=torch.float32, device=dev)

@@ -200,7 +200,7 @@ def _solve_step_cuda(uu, vv, dpsis, a11, a12, a22, b1, b2, du, dv, *,
     if du is not None:
         named.update(du=du, dv=dv)
     for name, t in named.items():
-        kernels.require_f32_cuda(name, t, (b, h, w), dev)
+        kernels.require_cuda(name, t, (b, h, w), dev)
     kernels.require_rows(rows, b, h, dev)
     ndu = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     ndv = torch.empty_like(ndu)

@@ -63,16 +63,16 @@ def _warp_assemble_cuda(seq, wx, wy, occ, du, dv, cw, p, mode, zero_duv,
         raise ValueError(f"seq: shape {tuple(seq.shape)} does not match "
                          f"S = {p.S}")
     plane = (b, h, w)
-    kernels.require_f32_cuda("seq", seq, (b, f, 3, h, w), dev)
+    kernels.require_cuda("seq", seq, (b, f, 3, h, w), dev)
     for name, t in (("wx", wx), ("wy", wy)):
-        kernels.require_f32_cuda(name, t, plane, dev)
-    kernels.require_f32_cuda("cw", cw, (b, 3, h, w), dev)
+        kernels.require_cuda(name, t, plane, dev)
+    kernels.require_cuda("cw", cw, (b, 3, h, w), dev)
     kernels.require_rows(rows, b, h, dev)
     if mode == "assembly":
-        kernels.require_f32_cuda("occ", occ, plane, dev)
+        kernels.require_cuda("occ", occ, plane, dev)
     if not zero_duv:
-        kernels.require_f32_cuda("du", du, plane, dev)
-        kernels.require_f32_cuda("dv", dv, plane, dev)
+        kernels.require_cuda("du", du, plane, dev)
+        kernels.require_cuda("dv", dv, plane, dev)
     mode_id, n_out = MODES[mode]
     params = kernel_params(p)
     out = torch.empty((n_out, b, h, w), dtype=torch.float32, device=dev)

@@ -15,7 +15,8 @@ identical except where the two competing seeds' distances tie within 1e-6
 relative, on the geometries of tests/test_epic.py (uniform cost, a wall,
 random cost); the seed graph and its k-NN identical (the port's C++ copy,
 its Python Dijkstra and the JAX package's knn_graph_all); the NW / LA fits
-within 1e-5; `epic_batched` end to end (LA and NW, prefilter on) with a
+within 1e-5; the fit kernel's packed table (`pack_jobs`) against a loop
+over the jobs; `epic_batched` end to end (LA and NW, prefilter on) with a
 median |dflow| <= 1e-4 px and >= 99.9 % of pixels within 1e-3 px; the
 parameter presets field by field. Inputs come from seeded numpy generators.
 """
@@ -407,6 +408,61 @@ def test_fits_match_jax():
                 jinterp.fit_nadarayawatson(nnf, disk, vects)) <= 1e-5
     assert _rel(interp.fit_localaffine(nnf, disk, seeds, vects),
                 jinterp.fit_localaffine(nnf, disk, seeds, vects)) <= 1e-5
+
+
+@pytest.mark.parametrize("jobs", [((40, 12), (1, 1), (25, 7)), ((30, 9),)],
+                         ids=["ragged", "one_job"])
+def test_pack_jobs_matches_a_per_job_loop(jobs):
+    """The fit kernel's packed table against a loop over the jobs: table
+    rows job after job, columns padded with -1 / +inf, each seed's job, its
+    table row and distance at its pixel, and the jobs' first rows, so that
+    starts[job] + a job-local index is the row the loop gives; and the
+    twin's fits of the packed table, gathered per seed (global indices),
+    equal the per-job fits of `dist_trf_nnfield_batched`'s gather."""
+    rng = np.random.default_rng(len(jobs))
+    probs = []
+    for b, (ns, k) in enumerate(jobs):
+        nnf, dis, seeds, vects = _knn_problem(seed=b, ns=ns, k=k)
+        rows = np.arange(ns)
+        rows[rng.random(ns) < 0.2] = rng.integers(0, ns)  # shared pixels
+        d0 = rng.random(ns).astype(np.float32)
+        probs.append((nnf, dis.astype(np.float32), rows, d0, seeds, vects))
+    packed = interp.pack_jobs(*([p[i] for p in probs] for i in range(6)),
+                              CPU)
+    assert [a.dtype for a in packed] == [torch.float32] * 2 + [
+        torch.int32, torch.float32, torch.int32, torch.float32, torch.int32,
+        torch.int32]
+    seeds, vects, nnf, dis, src, d0, job, starts = (a.numpy()
+                                                    for a in packed)
+    kmax = max(k for _, k in jobs)
+    assert nnf.shape == dis.shape == (sum(ns for ns, _ in jobs), kmax)
+    assert len(starts) == len(jobs) + 1 and starts[-1] == len(nnf)
+    base = starts[job]
+    row = 0
+    for b, (p_nnf, p_dis, p_rows, p_d0, p_seeds, p_vects) in enumerate(probs):
+        ns, k = p_nnf.shape
+        assert starts[b] == row and (job[row:row + ns] == b).all()
+        for i in range(ns):
+            s = row + i
+            assert base[s] == row and d0[s] == p_d0[i]
+            assert src[s] == p_rows[i]
+            np.testing.assert_array_equal(nnf[s, :k], p_nnf[i])
+            np.testing.assert_array_equal(dis[s, :k], p_dis[i])
+            assert (nnf[s, k:] == -1).all() and np.isinf(dis[s, k:]).all()
+            valid = p_nnf[i] >= 0
+            np.testing.assert_array_equal(
+                (base[s] + nnf[s, :k])[valid], row + p_nnf[i][valid])
+        np.testing.assert_array_equal(seeds[row:row + ns], p_seeds)
+        np.testing.assert_array_equal(vects[row:row + ns], p_vects)
+        row += ns
+    own = base + src
+    glob = np.where(nnf[own] >= 0, base[:, None] + nnf[own], -1)
+    packed = interp.fit_localaffine(
+        glob, interp._kernelize(d0[:, None] + dis[own], 1.1), seeds, vects)
+    per_job = np.concatenate([interp.fit_localaffine(
+        p[0][p[2]], interp._kernelize(p[3][:, None] + p[1][p[2]], 1.1),
+        p[4], p[5]) for p in probs])
+    assert _rel(packed, per_job) <= 1e-5
 
 
 def _epic_jobs(n_jobs=2, h=36, w=44):

@@ -14,7 +14,8 @@
 - Stage 3's `dt.alternate` is still a host record under a CPU profiler,
   inside `dt.call`, and the init's spans nest in `dt.init_final`.
 - Timers and spans at once: `recording()` counts every phase's span, and
-  times no `span` or `call` site, traced or not.
+  times no `span` or `call` site, traced or not; nested `recording()`
+  blocks each end their own dict.
 - On a card (`cuda`): a span around a synchronized kernel holds that
   kernel's device record.
 """
@@ -159,6 +160,19 @@ def test_recording_counts_every_span():
     kept, _ = phases.spans()
     assert rec["outer"][1] == 1 and rec["inner"][1] == 2
     assert sum(n for _, n in rec.values()) == len(kept)
+
+
+def test_nested_recordings_end_their_own_dicts():
+    """An inner `recording()` that holds what the outer one holds ends
+    itself, not the outer one."""
+    with phases.recording() as outer:
+        with phases.recording() as inner:
+            with phases.phase("a"):
+                pass
+        with phases.phase("b"):
+            pass
+    assert list(inner) == ["a"]
+    assert outer["a"][1] == outer["b"][1] == 1
 
 
 @pytest.mark.parametrize("traced", [False, True])

@@ -2,8 +2,11 @@
 shapes of tests/test_torch_tracking.py, with the same proposal draws given
 to both: energies and occlusion labels within 1e-4 relative / equal, the
 selection MRF's labels >= 99 % equal, `track_final_pair` flows within 1e-3
-px on >= 99 % of pixels with >= 99 % equal occlusion maps, and the card's
-batched path equal to its serial path. Every test needs a CUDA GPU and skips
+px on >= 99 % of pixels with >= 99 % equal occlusion maps (with EPIC on,
+its fits one launch of each kernel, also within the benchmark's limits:
+mean end-point error <= 0.004 px, <= 4 % of pixels off by > 0.01 px or
+with another occlusion flag), and the card's batched path equal to its
+serial path. Every test needs a CUDA GPU and skips
 without one.
 
     python -m pytest tests/test_torch_tracking_cuda.py -m cuda
@@ -14,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from slowflow_tpu_torch import kernels
 from slowflow_tpu_torch.core.penalty import make_penalty
 from slowflow_tpu_torch.tracking import driver, hypothesis, mrf
 from test_tracking_batched import CFG, _job, _job_multirate
@@ -92,11 +96,20 @@ def test_track_final_pair_on_the_card(cuda_device, case):
     else:
         cfg, job = EPIC_CFG, _epic_job(_job(-0.7, 0.3, 1))
         wj = np.zeros(1, np.float32)
+    kernels.reset_launch_counts()
     flow, occ, _ = _track(cfg, job, wj, cuda_device)
+    fits = kernels.LAUNCHES["epic_fit"], kernels.LAUNCHES["epic_apply"]
     flow_c, occ_c, _ = _track(cfg, job, wj, "cpu")
     d = np.abs(flow - flow_c).max(-1)
     assert (d <= 1e-3).mean() >= 0.99, (d > 1e-3).mean()
     assert (occ == occ_c).mean() >= 0.99
+    if case == "epic":
+        # the EPIC hypotheses' fits on the card, the host's on the CPU:
+        # the final pair within the benchmark's limits of `correct`
+        assert fits == (1, 1)
+        epe = np.hypot(*(flow - flow_c).transpose(2, 0, 1))
+        assert epe.mean() <= 0.004
+        assert ((epe > 0.01) | (occ != occ_c)).mean() <= 0.04
 
 
 @pytest.mark.cuda
