@@ -4,7 +4,11 @@ accumulation of each jet and from EPIC interpolation, then alternations of
 propagation, NMS, unary and pairwise terms and the TRW-S solve.
 
 A frozen copy of the port's eager torch-op code (its CUDA graphs replay the
-same operations), with what the port takes from elsewhere written here
+same operations), but for the per-pixel steps over the whole bank (the
+energies of a propagation pass, NMS, the pairwise costs), which run over
+blocks of grid rows (`support.row_blocks`) so that the published scale
+fits on one card, bit for bit the whole grid's values; with what the port
+takes from elsewhere written here
 (`support.py`): the seed graph's k nearest nodes by a Dijkstra in lockstep
 over every source on the device, where the port calls its C++ library,
 and the small-segment removal by flooding, where the port calls scipy.

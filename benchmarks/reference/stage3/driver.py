@@ -26,7 +26,7 @@ import torch
 
 from .penalty import make_penalty
 from .support import Segments, as_float as as_f32, phase, \
-    remove_small_segments
+    remove_small_segments, row_blocks
 from .accumulate import accumulate_consistent_batches
 from .hypothesis import (
     EnergyParams, adapt_fps, hypothesis_energy, set_occlusions,
@@ -175,9 +175,11 @@ def _bank_truncate(bank, n: int):
 def _bank_nms(bank, method: int, thres: float):
     """Greedy per-pixel non-maximum suppression by trajectory distance
     (dense_tracking.cpp:1585-1637). Assumes slots sorted by priority."""
-    K = bank["energy"].shape[-1]
-    d = trajectory_distance(bank["flows"][:, :, :, :, None],
-                            bank["flows"][:, :, :, None], method)
+    flows = bank["flows"]
+    h, w, K, J = flows.shape[1:5]
+    d = torch.cat([trajectory_distance(flows[:, rows, :, :, None],
+                                       flows[:, rows, :, None], method)
+                   for rows in row_blocks(h, w * K * K * J * 2)], 1)
     kept = bank["valid"][..., :1].clone()
     for k in range(1, K):
         close = ((d[..., k, :k] < thres) & kept).any(-1)
@@ -458,18 +460,25 @@ class _Alternation(Segments):
         them), plus each slot's rate weight."""
         st, cfg, fields = self.st, self.cfg, self.ins.fields
         bank = st.bank
-        h, w = bank["energy"].shape[1:3]
+        h, w, K, J = bank["flows"].shape[1:5]
         device = bank["energy"].device
         inserted = bank["valid"] & ~st.valid0                 # [F, h, w, K]
         px, py = _grid_positions(h, w, self.xy_incr, self.xy_start, device)
         pen = make_penalty(cfg.penalty_fct_data, cfg.penalty_fct_data_eps)
-        occl_all = set_occlusions(px, py, bank["flows"], fields["forward"],
-                                  fields["backward"], cfg.occlusion_threshold,
+        occl_all, energy_all = [], []
+        # add_bcgc's frame-pair differences: K (J + 1) J / 2 x 9 a pixel
+        for rows in row_blocks(h, w * K * (J + 1) * J // 2 * 9):
+            flows = bank["flows"][:, rows]
+            occl = set_occlusions(px[rows], py[rows], flows,
+                                  fields["forward"], fields["backward"],
+                                  cfg.occlusion_threshold,
                                   cfg.occlusion_fb_threshold)
-        energy_all = hypothesis_energy(
-            px, py, bank["flows"], occl_all, fields["forward"],
-            fields["data"], fields["data_dx"], fields["data_dy"], pen,
-            cfg.energy_params(), fields.get("occ_masks"))
+            occl_all.append(occl)
+            energy_all.append(hypothesis_energy(
+                px[rows], py[rows], flows, occl, fields["forward"],
+                fields["data"], fields["data_dx"], fields["data_dy"], pen,
+                cfg.energy_params(), fields.get("occ_masks")))
+        occl_all, energy_all = torch.cat(occl_all, 1), torch.cat(energy_all, 1)
         weight_jet = self.ins.weight_jet
         rates = torch.arange(weight_jet.shape[0], device=device)
         wj = (weight_jet * (bank["jet_est"][..., None] == rates)).sum(-1)

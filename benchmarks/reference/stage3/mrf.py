@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from .support import Segments
+from .support import Segments, row_blocks
 
 BIG = 1e9
 
@@ -238,14 +238,21 @@ def pairwise_costs(flows, occl, smooth_weight, beta, spatial_occ, method,
     xs = torch.arange(w, device=dev) * xy_incr + xy_start
     sw = smooth_weight[:, ys[:, None], xs[None, :]]
 
+    K, J = flows.shape[3:5]
+
     def edge_cost(dy, dx):
         fb = _shift(flows, dy, dx)
         ob = _shift(occl, dy, dx)
-        d = trajectory_distance(flows[:, :, :, :, None], fb[:, :, :, None],
-                                method)
-        occ_dis = (occl[:, :, :, :, None] != ob[:, :, :, None]).sum(-1)
         sw_pair = sw + _shift(sw, dy, dx)
-        return sw_pair[..., None, None] * (beta * d + spatial_occ * occ_dis)
+        out = []
+        for rows in row_blocks(h, w * K * K * J * 2):
+            d = trajectory_distance(flows[:, rows, :, :, None],
+                                    fb[:, rows, :, None], method)
+            occ_dis = (occl[:, rows, :, :, None]
+                       != ob[:, rows, :, None]).sum(-1)
+            out.append(sw_pair[:, rows, :, None, None]
+                       * (beta * d + spatial_occ * occ_dis))
+        return torch.cat(out, 1)
 
     cost_r, cost_d = edge_cost(0, 1), edge_cost(1, 0)
     if not batched:

@@ -1,8 +1,8 @@
 """What the reference's stage-3 modules take from elsewhere, written here:
 tensor conversion in the compute dtype, the eager stand-in of the port's
-segment runner, small-segment removal, and the seed graph's k nearest
-nodes by shortest path (Dijkstra in lockstep over every source, on the
-device)."""
+segment runner, the blocks of grid rows that the per-pixel steps run over,
+small-segment removal, and the seed graph's k nearest nodes by shortest
+path (Dijkstra in lockstep over every source, on the device)."""
 from __future__ import annotations
 
 import contextlib
@@ -45,6 +45,22 @@ class Segments:
         fn()
 
 
+# elements of the largest intermediate that one block of grid rows of a
+# per-pixel step may build (2^28 float32: 1 GiB)
+BLOCK_ELEMENTS = 1 << 28
+
+
+def row_blocks(h: int, per_row: int) -> list[slice]:
+    """Blocks of the h grid rows for a per-pixel step whose largest
+    intermediate holds `per_row` elements a row: as many rows a block as
+    BLOCK_ELEMENTS allows, at least one. Steps whose reductions run over
+    the hypotheses, frames and channels of a pixel alone give, block by
+    block, the whole grid's values bit for bit, and at the published scale
+    they fit beside the bank."""
+    rows = max(1, BLOCK_ELEMENTS // max(per_row, 1))
+    return [slice(r, min(r + rows, h)) for r in range(0, h, rows)]
+
+
 def remove_small_segments(F: np.ndarray, min_size: int) -> None:
     """Zero, in place, every 4-connected component of equal values of the
     integer map F that has fewer than `min_size` pixels (labels by
@@ -80,7 +96,10 @@ def knn_shortest_paths(indptr, indices, data, k: int, device):
     sums along the path); unfilled slots are -1 / +inf. Every source runs
     Dijkstra at once: each step settles, per source, its unsettled node of
     least tentative distance (the lowest index on a tie) and relaxes that
-    node's edges."""
+    node's edges. A source keeps one (node, distance) entry for each
+    relaxation it made, so a step looks only at the nodes that its source
+    has reached: a node's least entry is its tentative distance, and the
+    entries of a settled node are set aside."""
     indptr = np.asarray(indptr, np.int64)
     ns = len(indptr) - 1
     best = np.full((ns, k), -1, np.int32)
@@ -98,26 +117,39 @@ def knn_shortest_paths(indptr, indices, data, k: int, device):
     nbr = torch.as_tensor(nbr, device=device)
     wts = torch.as_tensor(wts, device=device)
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=device)
-    chunk = max(1, (1 << 28) // max(ns, 1))
+    steps = min(k, ns)
+    width = 1 + steps * maxdeg            # the entries a source can make
+    chunk = max(1, BLOCK_ELEMENTS // width)
     for s0 in range(0, ns, chunk):
         src = torch.arange(s0, min(ns, s0 + chunk), device=device)
         n = len(src)
-        r = torch.arange(n, device=device)
-        dmat = torch.full((n, ns), float("inf"), dtype=torch.float32,
-                          device=device)
-        dmat[r, src] = 0.0
-        settled = torch.zeros((n, ns), dtype=torch.bool, device=device)
+        node = torch.full((n, width), -1, dtype=torch.int64, device=device)
+        node[:, 0] = src
+        dd = torch.full((n, width), float("inf"), dtype=torch.float32,
+                        device=device)
+        dd[:, 0] = 0.0
+        done = torch.zeros((n, width), dtype=torch.bool, device=device)
+        settled = torch.full((n, steps), -1, dtype=torch.int64,
+                             device=device)
         bo, do = [], []
-        for _ in range(min(k, ns)):
-            du, u = torch.where(settled, inf, dmat).min(1)
+        for i in range(steps):
+            m = 1 + i * maxdeg                # entries made so far
+            e = torch.where(done[:, :m], inf, dd[:, :m])
+            du = e.min(1).values
             ok = torch.isfinite(du)
-            bo.append(torch.where(ok, u, -1))
+            u = torch.where((e == du[:, None]) & ok[:, None], node[:, :m],
+                            ns).min(1).values
+            u = torch.where(ok, u, -1)
+            bo.append(u)
             do.append(du)
-            settled[r[ok], u[ok]] = True
-            nv, nw = nbr[u], wts[u]
+            settled[:, i] = u
+            done[:, :m] |= node[:, :m] == u[:, None]
+            nv, nw = nbr[u.clamp_min(0)], wts[u.clamp_min(0)]
             live = (nv >= 0) & ok[:, None]
-            cand = torch.where(live, du[:, None] + nw, inf)
-            dmat.scatter_reduce_(1, torch.where(live, nv, 0), cand, "amin")
+            node[:, m:m + maxdeg] = torch.where(live, nv, -1)
+            dd[:, m:m + maxdeg] = torch.where(live, du[:, None] + nw, inf)
+            done[:, m:m + maxdeg] = (nv[:, :, None]
+                                     == settled[:, None, :i + 1]).any(-1)
         best[s0:s0 + n, :len(bo)] = torch.stack(bo, 1).cpu().numpy()
         dist[s0:s0 + n, :len(do)] = torch.stack(do, 1).cpu().numpy()
     return best, dist

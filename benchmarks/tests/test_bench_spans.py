@@ -1,8 +1,8 @@
 """The readers of the port's spans (`slowflow_tpu_torch.utils.phases.spans()`)
 on a recorded span list beside recorded device events, on the CPU: idle
 seconds inside stage 3's init and alternation spans, the jet solve's
-exit-flag reads per jet and the share of the untraced idle time they
-hold; spans cut to the traced calls' range, those outside it and flag
+exit-flag reads per jet and the share of the idle time they hold (at
+the untraced pace, and in the traced range itself); spans cut to the traced calls' range, those outside it and flag
 reads outside a `sf.call` left out; no reading where the port keeps no
 spans or nothing was traced."""
 import pytest
@@ -68,7 +68,8 @@ def test_no_reading_without_spans_or_a_trace(monkeypatch):
                             ("graph.flag_read", 30, 40, None)])
     rec = tracking_rec([kernel(0, 100)])
     for name in ("init_idle_s_per_final.dt", "alternate_idle_s_per_final.dt",
-                 "flag_reads_per_jet.sf", "flag_read_idle_pct.sf"):
+                 "flag_reads_per_jet.sf", "flag_read_idle_pct.sf",
+                 "flag_read_idle_share.sf"):
         assert reader(name).read(dict(rec, events=None)) is None, name
     # a flag read inside no `sf.call` is not the jet solve's
     jets = dict(rec, unit="jets")
@@ -78,6 +79,7 @@ def test_no_reading_without_spans_or_a_trace(monkeypatch):
     monkeypatch.delattr(phases, "spans")
     assert reader("init_idle_s_per_final.dt").read(rec) is None
     assert reader("flag_read_idle_pct.sf").read(jets) is None
+    assert reader("flag_read_idle_share.sf").read(jets) is None
 
 
 def jet_spans(monkeypatch, walls=(0.5, 0.157, 0.157)):
@@ -114,3 +116,19 @@ def test_flag_reads_per_jet_and_the_idle_they_hold(monkeypatch):
     rec = jet_spans(monkeypatch, walls=(0.5,))
     assert reader("flag_reads_per_jet.sf").read(rec) == 3 / 4
     assert reader("flag_read_idle_pct.sf").read(rec) is None
+
+
+def test_the_flag_reads_share_of_the_traced_idle(monkeypatch):
+    """Both sides from the traced range: 14 ms idle inside the reads over
+    the range's 128 - 87 = 41 ms idle, with or without untraced calls."""
+    for walls in ((0.5, 0.157, 0.157), (0.5,)):
+        rec = jet_spans(monkeypatch, walls=walls)
+        assert reader("flag_read_idle_share.sf").read(rec) == \
+            pytest.approx(100 * 14 / 41)
+    # a read that holds the whole range holds all of its idle, and no more
+    use_spans(monkeypatch, [("sf.call", 0, 200, None),
+                            ("graph.flag_read", 0, 200, 0)])
+    assert reader("flag_read_idle_share.sf").read(rec) == pytest.approx(100)
+    # a range in which the device never idles: no share
+    assert reader("flag_read_idle_share.sf").read(
+        dict(rec, events=[kernel(2, 130)])) is None
